@@ -1,0 +1,452 @@
+"""Pluggable execution backends — one physical filter–verification layer.
+
+The engine's run objects (:mod:`.engine`) are *drivers*: they own the
+frontier bookkeeping (what is decided, what is pending, when a ranking is
+final) but delegate every physical operation to an :class:`ExecBackend`.
+Four primitives cover every plan the IR can express:
+
+* ``bounds(ctx, expr)``            — CHI-derived (lb, ub) for every
+                                     candidate of a value expression (the
+                                     filter phase; no mask bytes touched).
+* ``verify_counts(ctx, batch, terms)`` — exact per-CP-term pixel counts for
+                                     one verification batch (the
+                                     verification phase).
+* ``topk_candidates(lb, ub, k, …)`` — the ranking frontier: which
+                                     candidates can still reach the top-k.
+* ``mask_agg_counts(gctx, node, gidx)`` — fused thresholded
+                                     intersection/union counts for MASK_AGG
+                                     group verification.
+
+plus ``fused_counts`` — the service scheduler's cross-query
+``cp_count_multi`` pass, run on whichever backend owns the store.  The
+dual-mask pair primitives and the packed tier's megakernel route raise
+``NotImplementedError`` until their slices port the kernels.
+
+Two implementations:
+
+* :class:`HostBackend`   — the NumPy/``MaskEvalContext`` paths: metered
+                           ``store.load`` (partial ROI-row loads, shared-load
+                           cache, I/O metering); each verification batch is
+                           moved to the store's device and counted there by
+                           the ``cp_count`` kernel.
+* :class:`DeviceBackend` — the store's mask bytes and CHI table resident on
+                           the store's device; bounds *and* verification
+                           run there (torch ops plus the CUDA kernels), so
+                           the filter phase leaves the host.
+
+Equivalence contract: both backends return identical ids/scores and
+identical ``n_verified`` accounting for any plan.  Bounds interval
+arithmetic stays on the host in float64 for every backend (only the CP
+leaf differs, and it is integral), and the device top-k returns the τ *row
+id* rather than a float32 τ value, so the frontier comparison happens at
+full host precision everywhere.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kops
+from ..obs.metrics import REGISTRY as _REG
+from .distributed import _bounds_from_corners, device_resolve, value_ks
+
+F32_MAX = 3.4e38  # finite stand-in for +inf in float32 kernel compares
+
+_BACKEND_RESOLUTIONS = _REG.counter(
+    "masksearch_backend_resolutions_total",
+    "get_backend() resolutions by resolved backend", ("backend",))
+_BACKEND_BUILDS = _REG.counter(
+    "masksearch_backend_constructions_total",
+    "Named backend instances constructed (the resident mask/CHI upload "
+    "happens here)", ("backend",))
+_BACKEND_SYNCS = _REG.counter(
+    "masksearch_backend_syncs_total",
+    "Epoch re-pins of resident backend state after store mutations",
+    ("backend",))
+
+
+def _later(what: str):
+    return NotImplementedError(f"{what} is ported in a later slice")
+
+
+def spec_arrays(specs, dtype=np.float32):
+    """Stack fused-pass descriptors ``(rois, lv, uv)`` into kernel inputs,
+    clamping +inf upper values to the float32-safe ceiling — the one
+    canonical layout shared by every backend and the service scheduler."""
+    rois_q = np.stack([s[0] for s in specs]).astype(np.int32)
+    lvs = np.asarray([s[1] for s in specs], dtype)
+    uvs = np.asarray([min(s[2], F32_MAX) for s in specs], dtype)
+    return rois_q, lvs, uvs
+
+
+def is_packed(store) -> bool:
+    """Whether a store serves the bitpacked binary-mask tier (DESIGN.md §12).
+
+    ``getattr`` so snapshots, stores predating the tier, and test doubles
+    all read as float."""
+    return bool(getattr(store, "packed", False))
+
+
+def _device_of(store) -> torch.device:
+    return getattr(store, "device", torch.device("cpu"))
+
+
+def _to(arr, device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (no copy for a CPU device)."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+class ExecBackend:
+    """Protocol for the physical layer under the engine's run drivers."""
+
+    name = "abstract"
+
+    def sync(self) -> None:
+        """Refresh any store-resident state (pinned masks, CHI tables) to
+        the store's current epoch.  Called by :func:`get_backend` on every
+        resolution, so a backend instance cached across mutations never
+        serves pre-epoch residency.  Host is stateless — no-op."""
+
+    def bounds(self, ctx, expr):
+        """(lb, ub) float64 arrays over ``ctx``'s candidates for ``expr``."""
+        raise NotImplementedError
+
+    def verify_counts(self, ctx, batch: np.ndarray, terms) -> dict:
+        """Exact counts for one verification batch: CP term → float64
+        array aligned with ``batch`` (candidate indices into ``ctx``)."""
+        raise NotImplementedError
+
+    def topk_candidates(self, lb, ub, k: int, desc: bool,
+                        definite: np.ndarray,
+                        possible: np.ndarray) -> np.ndarray:
+        """The static pruning frontier: candidates whose optimistic bound
+        beats the k-th best pessimistic bound among ``definite``
+        (definitely-qualifying) candidates.  Returns an ``alive`` bool
+        array ⊆ ``possible``; when fewer than k are definite nothing can
+        be pruned and ``possible`` is returned unchanged."""
+        raise NotImplementedError
+
+    def mask_agg_counts(self, gctx, node, gidx: np.ndarray) -> np.ndarray:
+        """Exact MASK_AGG counts (thresholded intersect/union inside the
+        ROI) for group indices ``gidx`` of a :class:`GroupEvalContext`."""
+        raise NotImplementedError
+
+    def fused_verify_counts(self, ctx, batch: np.ndarray, terms,
+                            bounds_of=None) -> dict:
+        """The packed tier's bounds+verify megakernel route.  Float stores
+        take the classic per-term :meth:`verify_counts` path, so drivers
+        can call this unconditionally; packed stores raise until the
+        bitpacked slice ports the megakernel."""
+        if is_packed(getattr(ctx, "store", None)):
+            raise _later("the packed bounds+verify megakernel")
+        return self.verify_counts(ctx, batch, list(terms))
+
+    def fused_counts(self, store, positions: np.ndarray,
+                     specs) -> np.ndarray:
+        """The scheduler's fused pass: Q ``(rois, lv, uv)`` descriptors
+        over the masks at ``positions`` → (Q, B) counts from one pass
+        over the bytes."""
+        raise NotImplementedError
+
+    def fused_pair_counts(self, store, pos_a: np.ndarray, pos_b: np.ndarray,
+                          specs) -> np.ndarray:
+        """Dual-mask pass (Q pair descriptors → (Q, 3, B) inter / union /
+        diff counts)."""
+        raise _later("the dual-mask pair_counts kernel")
+
+    def pair_verify_counts(self, pctx, batch: np.ndarray, terms) -> dict:
+        """Exact pair-term counts for one verification batch."""
+        raise _later("pair verification")
+
+
+# ---------------------------------------------------------------------------
+# Host — the NumPy / MaskEvalContext physical layer
+# ---------------------------------------------------------------------------
+
+
+class HostBackend(ExecBackend):
+    """The original physical layer: bounds through the store's CHI gather,
+    verification through metered ``store.load`` (partial ROI-row loads,
+    shared-load cache) + the ``cp_count`` kernel on the store's device,
+    frontiers in NumPy."""
+
+    name = "host"
+
+    def bounds(self, ctx, expr):
+        return ctx.bounds(expr)
+
+    def verify_counts(self, ctx, batch, terms):
+        # One ctx.exact per *distinct* term: masks_for caches the load, so
+        # a predicate and a ranking sharing an expression share its bytes.
+        return {t: ctx.exact(t, batch) for t in terms}
+
+    def topk_candidates(self, lb, ub, k, desc, definite, possible):
+        if desc:
+            dvals = lb[definite]
+            if len(dvals) >= k:
+                tau = np.partition(dvals, -k)[-k]
+                return possible & (ub >= tau)
+            return possible.copy()
+        dvals = ub[definite]
+        if len(dvals) >= k:
+            tau = np.partition(dvals, k - 1)[k - 1]
+            return possible & (lb <= tau)
+        return possible.copy()
+
+    def mask_agg_counts(self, gctx, node, gidx):
+        if is_packed(gctx.store):
+            raise _later("the packed MASK_AGG popcount kernel")
+        gidx = np.asarray(gidx)
+        s = gctx.groups.shape[1]
+        flat_idx = (gidx[:, None] * s + np.arange(s)[None, :]).reshape(-1)
+        masks = gctx._ctx.masks_for(flat_idx)
+        masks = masks.reshape((len(gidx), s) + masks.shape[1:])
+        rois = gctx.resolve_group_rois(node.roi, gidx)
+        # fused threshold+agg+count → the CUDA mask_agg kernel on the card
+        dev = _device_of(gctx.store)
+        inter, union = kops.mask_agg_counts(_to(masks, dev), _to(rois, dev),
+                                            node.thresh)
+        counts = inter if node.agg == "intersect" else union
+        return _host(counts).astype(np.float64)
+
+    def fused_counts(self, store, positions, specs):
+        if is_packed(store):
+            raise _later("the packed multi-query popcount kernel")
+        masks = store.load(positions)
+        rois_q, lvs, uvs = spec_arrays(specs, masks.dtype)
+        dev = _device_of(store)
+        return _host(kops.cp_count_multi(_to(masks, dev), _to(rois_q, dev),
+                                         _to(lvs, dev), _to(uvs, dev)))
+
+
+# ---------------------------------------------------------------------------
+# Device — single device, masks + CHI resident in its memory
+# ---------------------------------------------------------------------------
+
+
+def _device_cp_bounds(tables, pos, rois, rb, cb, ks):
+    """CP-leaf bounds with the candidate gather, corner resolution and
+    8-corner lookup all on the device (the filter phase leaving the host).
+    The tier is implicit in the operands: ``device_resolve`` derives the
+    grid from ``rb``'s length."""
+    corners, area = device_resolve(rois, rb, cb)
+    return _bounds_from_corners(tables[pos], corners, area,
+                                int(ks[0]), int(ks[1]), int(ks[2]),
+                                int(ks[3]))
+
+
+def _device_multi_counts(masks, pos, rois_q, lvs, uvs):
+    """Gather a verification batch from the resident mask array and answer
+    Q CP descriptors in one fused kernel pass."""
+    return kops.cp_count_multi(masks[pos], rois_q, lvs, uvs)
+
+
+def _device_kth_index(pes, definite, k: int) -> int:
+    masked = torch.where(definite, pes,
+                         torch.full_like(pes, float("-inf")))
+    return int(torch.topk(masked, k).indices[k - 1])
+
+
+def _device_group_counts(masks, flat_pos, rois, thresh, s: int):
+    grp = masks[flat_pos]
+    n = flat_pos.shape[0] // s
+    grp = grp.reshape(n, s, masks.shape[1], masks.shape[2])
+    return kops.mask_agg_counts(grp, rois, thresh)
+
+
+class _KthValueMixin:
+    """Shared τ finalization: the device top-k selects over *float32*
+    scores and returns the k-th best row's id; τ itself is then re-derived
+    on the host in float64, so the frontier is bit-identical to
+    HostBackend's ``np.partition`` path.
+
+    The float32 cast is order-preserving but not injective: scores closer
+    than one f32 ulp collapse into a tie class, and the top-k's pick
+    within that class is arbitrary (``torch.topk`` and ``lax.top_k`` pick
+    differently) — reading its float64 value directly could yield a τ
+    *larger* than the true k-th value and over-prune.  So when the selected
+    row's f32 score is shared, the exact τ is resolved from the (tiny) tie
+    class at float64: it is the m-th largest member, where
+    m = k − (#definite scores strictly above the class)."""
+
+    def _alive_from_index(self, lb, ub, k, desc, definite, possible,
+                          pes32, tau_idx):
+        pes64 = lb if desc else -ub
+        if tau_idx >= len(pes64):   # τ fell on a padded −inf row: no pruning
+            return possible.copy()
+        # Read τ's class through the same masked view the top-k ranked
+        # (non-definite rows are −inf there), not the raw score array.
+        tau32 = pes32[tau_idx] if definite[tau_idx] else np.float32(-np.inf)
+        tie = definite & (pes32 == tau32)
+        n_tie = int(np.count_nonzero(tie))
+        if n_tie == 0:              # masked −inf pick outside definite
+            return possible.copy()
+        if n_tie == 1:
+            tau = pes64[np.nonzero(tie)[0][0]]
+        else:
+            m = k - int(np.count_nonzero(definite & (pes32 > tau32)))
+            vals = pes64[tie]
+            tau = np.partition(vals, len(vals) - m)[len(vals) - m]
+        if desc:
+            return possible & (ub >= tau)
+        return possible & (lb <= -tau)
+
+
+class DeviceBackend(_KthValueMixin, ExecBackend):
+    """Mask bytes + CHI table resident on the store's device; bounds and
+    verification run there, over the CUDA kernels on the card."""
+
+    name = "device"
+
+    def __init__(self, store):
+        if is_packed(store):
+            raise _later("the packed device tier")
+        self.store = store
+        self.cfg = store.cfg
+        self.device = _device_of(store)
+        self._masks = store.device_masks()
+        self._tables = store.chi_table
+        self._epoch = getattr(store, "epoch", 0)
+        self._rb = self._bounds_tensor(self.cfg.row_bounds)
+        self._cb = self._bounds_tensor(self.cfg.col_bounds)
+        self._tier_bnds: dict = {}   # tier grid → (row_bounds, col_bounds)
+
+    def _bounds_tensor(self, b) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(b, np.int32)).to(self.device)
+
+    def sync(self):
+        """Re-pin the resident mask/CHI tensors after a store mutation.  The
+        store maintains its device caches incrementally (appends copy only
+        the new chunk over, updates scatter in place, deletes gather), so
+        this is a reference refresh, not a re-upload."""
+        if self._epoch == getattr(self.store, "epoch", 0):
+            return
+        self._masks = self.store.device_masks()
+        self._tables = self.store.chi_table
+        self._epoch = self.store.epoch
+        _BACKEND_SYNCS.labels(backend=self.name).inc()
+
+    def bounds(self, ctx, expr):
+        if hasattr(ctx, "pair_rois"):
+            return ctx.bounds(expr, pair_leaf=self._pair_cells)
+        return ctx.bounds(expr, cp_leaf=self._cp_bounds)
+
+    def _tier_bounds(self, g: int):
+        pair = self._tier_bnds.get(g)
+        if pair is None:
+            tcfg = self.cfg.for_grid(g)
+            pair = (self._bounds_tensor(tcfg.row_bounds),
+                    self._bounds_tensor(tcfg.col_bounds))
+            self._tier_bnds[g] = pair
+        return pair
+
+    def _cp_bounds(self, mctx, node):
+        rois = mctx.resolve_rois(node.roi, mctx.positions)
+        g = getattr(mctx, "tier", None)
+        if g is None or g == self.cfg.grid:
+            cfg, tables, rb, cb = self.cfg, self._tables, self._rb, self._cb
+        else:
+            # coarse ladder rung: the store's device-resident tier table
+            # (maintained incrementally across mutations) + tier boundaries
+            cfg = self.cfg.for_grid(g)
+            tables = self.store.chi_tier_table(g)
+            rb, cb = self._tier_bounds(g)
+        ks = value_ks(cfg, node.lv, node.uv)
+        lb, ub = _device_cp_bounds(
+            tables, _to(np.asarray(mctx.positions, np.int64), self.device),
+            _to(rois.astype(np.int32), self.device), rb, cb, ks)
+        return _host(lb).astype(np.float64), _host(ub).astype(np.float64)
+
+    def _pair_cells(self, pctx, node):
+        raise _later("the device pair-bounds cell combine")
+
+    def verify_counts(self, ctx, batch, terms):
+        terms = list(terms)
+        pos = ctx.positions[batch]
+        rois_q, lvs, uvs = spec_arrays(
+            [(ctx.resolve_rois(t.roi, pos), t.lv, t.uv) for t in terms])
+        counts = _host(_device_multi_counts(
+            self._masks, _to(np.asarray(pos, np.int64), self.device),
+            _to(rois_q, self.device), _to(lvs, self.device),
+            _to(uvs, self.device)))
+        return {t: counts[i].astype(np.float64)
+                for i, t in enumerate(terms)}
+
+    def topk_candidates(self, lb, ub, k, desc, definite, possible):
+        if k <= 0 or int(np.count_nonzero(definite)) < k:
+            return possible.copy()
+        pes32 = (lb if desc else -ub).astype(np.float32)
+        tau_idx = _device_kth_index(
+            _to(pes32, self.device),
+            _to(np.asarray(definite, bool), self.device), k)
+        return self._alive_from_index(lb, ub, k, desc, definite, possible,
+                                      pes32, tau_idx)
+
+    def mask_agg_counts(self, gctx, node, gidx):
+        gidx = np.asarray(gidx)
+        s = gctx.groups.shape[1]
+        flat = gctx.groups[gidx].reshape(-1)
+        rois = gctx.resolve_group_rois(node.roi, gidx)
+        inter, union = _device_group_counts(
+            self._masks, _to(np.asarray(flat, np.int64), self.device),
+            _to(rois.astype(np.int32), self.device), node.thresh, int(s))
+        counts = inter if node.agg == "intersect" else union
+        return _host(counts).astype(np.float64)
+
+    def fused_counts(self, store, positions, specs):
+        rois_q, lvs, uvs = spec_arrays(specs)
+        return _host(_device_multi_counts(
+            self._masks, _to(np.asarray(positions, np.int64), self.device),
+            _to(rois_q, self.device), _to(lvs, self.device),
+            _to(uvs, self.device)))
+
+
+# ---------------------------------------------------------------------------
+# Resolution
+# ---------------------------------------------------------------------------
+
+_HOST = HostBackend()
+_NAMED = {"device": DeviceBackend}
+
+
+def host_backend() -> HostBackend:
+    """The stateless host backend singleton (the default everywhere)."""
+    return _HOST
+
+
+def get_backend(store, backend=None) -> ExecBackend:
+    """Resolve a backend spec against a store.
+
+    ``backend`` is ``None``/``"host"`` (default), a backend *name*
+    (``"device"`` — instances are cached per store, so the resident
+    mask/CHI upload happens once), or an :class:`ExecBackend` instance.
+    The mesh backend comes with the mesh slice.
+    """
+    if backend is None or backend == "host":
+        _BACKEND_RESOLUTIONS.labels(backend="host").inc()
+        return _HOST
+    if isinstance(backend, ExecBackend):
+        backend.sync()
+        _BACKEND_RESOLUTIONS.labels(backend=backend.name).inc()
+        return backend
+    cls = _NAMED.get(backend)
+    if cls is None:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{['host'] + sorted(_NAMED)} or an ExecBackend")
+    cache = store.backend_cache
+    if backend not in cache:
+        cache[backend] = cls(store)
+        _BACKEND_BUILDS.labels(backend=backend).inc()
+    else:
+        cache[backend].sync()
+    _BACKEND_RESOLUTIONS.labels(backend=backend).inc()
+    return cache[backend]
+
+
+__all__ = ["ExecBackend", "HostBackend", "DeviceBackend", "F32_MAX",
+           "get_backend", "host_backend", "is_packed", "spec_arrays"]

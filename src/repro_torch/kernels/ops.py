@@ -1,0 +1,97 @@
+"""Public kernel wrappers: one dispatch point per kernel, instrumented.
+
+Dispatch policy: a tensor on the CPU goes to the kernel's plain PyTorch
+version (:mod:`.ref`); a CUDA tensor launches the hand-written CUDA kernel
+or raises — there is no fallback.  That is the whole policy: the device of
+the input decides, so the CPU tests reach the same call sites the card
+runs.
+
+Each wrapper keeps a plain integer ``launches`` count that moves only when
+its CUDA kernel is launched (``chip_smoke.py`` zeroes and reads these
+around the main path), plus the JAX package's Prometheus instruments:
+``masksearch_kernel_launches_total`` (dispatches through the wrapper),
+``masksearch_kernel_dispatch_seconds`` (wall time of a dispatch — on the
+card, the enqueue) and ``masksearch_jit_compiles_total`` (kernel builds,
+counted in :mod:`.cuda_lib`).
+
+These wrappers are what core/ calls — nothing else imports the kernel
+modules directly.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..obs.metrics import REGISTRY as _REG
+from . import ref
+from .chi_build import chi_cell_hist_cuda
+from .cp_count import cp_count_cuda, cp_count_multi_cuda
+from .mask_agg import mask_agg_counts_cuda
+
+_KERNEL_LAUNCHES = _REG.counter(
+    "masksearch_kernel_launches_total",
+    "Dispatches through each public kernel wrapper", ("kernel",))
+_KERNEL_SECONDS = _REG.histogram(
+    "masksearch_kernel_dispatch_seconds",
+    "Wall time per kernel wrapper dispatch (on a CUDA tensor: the launch "
+    "enqueue; the first call also builds the kernel)", ("kernel",))
+
+
+class Kernel:
+    """One kernel's dispatching wrapper: ``plain`` for CPU tensors,
+    ``cuda`` (returning ``(out, launches)``) for CUDA tensors."""
+
+    def __init__(self, name: str, plain, cuda, doc: str):
+        self.name = name
+        self.plain = plain
+        self.cuda = cuda
+        self.__doc__ = doc
+        self.launches = 0
+        self._dispatches = _KERNEL_LAUNCHES.labels(kernel=name)
+        self._seconds = _KERNEL_SECONDS.labels(kernel=name)
+
+    def __call__(self, x: torch.Tensor, *args):
+        t0 = time.perf_counter()
+        try:
+            if x.device.type == "cpu":
+                return self.plain(x, *args)
+            if x.device.type != "cuda":
+                raise ValueError(f"{self.name}: no kernel for device "
+                                 f"{x.device}")
+            out, n = self.cuda(x, *args)
+            self.launches += n
+            return out
+        finally:
+            self._seconds.observe(time.perf_counter() - t0)
+            self._dispatches.inc()
+
+    def __repr__(self) -> str:
+        return f"<kernel {self.name}: {self.launches} launches>"
+
+
+cp_count = Kernel(
+    "cp_count", ref.cp_count_ref, cp_count_cuda,
+    "Batched exact CP — (B,H,W), (B,4), lv, uv → (B,) int32.")
+cp_count_multi = Kernel(
+    "cp_count_multi", ref.cp_count_multi_ref, cp_count_multi_cuda,
+    "Multi-query CP — (B,H,W), (Q,B,4), (Q,), (Q,) → (Q,B) int32.")
+chi_cell_hist = Kernel(
+    "chi_cell_hist", ref.chi_cell_hist_ref, chi_cell_hist_cuda,
+    "CHI ingest histograms — (B,H,W), (NB-1,), grid → (B,G,G,NB) int32.")
+mask_agg_counts = Kernel(
+    "mask_agg_counts", ref.mask_agg_counts_ref, mask_agg_counts_cuda,
+    "Fused MASK_AGG counts — (N,S,H,W), (N,4), t → (inter, union) int32.")
+
+KERNELS = (cp_count, cp_count_multi, chi_cell_hist, mask_agg_counts)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+

@@ -1,0 +1,117 @@
+"""PyTorch port on the card: each CUDA kernel against its plain version.
+
+These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build
+with ``nvcc`` at first use); elsewhere they skip with a reason.  Run them
+on a GPU machine with::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Inputs come from fixed numpy seeds; every output is an int32 count, so
+kernel and plain version must agree exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.data.masks import object_boxes, saliency_masks
+from repro_torch.core import CHIConfig, MaskStore, queries
+from repro_torch.core.store import MASK_META_DTYPE
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(3, 64, 64), (2, 128, 256), (5, 96, 160), (4, 32, 512),
+          (3, 50, 70), (2, 224, 224)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(shape, seed, device):
+    b, h, w = shape
+    rng = np.random.default_rng(seed)
+    m = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(device)
+    r = np.sort(rng.integers(0, h + 1, (b, 2)), axis=1)
+    c = np.sort(rng.integers(0, w + 1, (b, 2)), axis=1)
+    rois = torch.from_numpy(np.stack([r[:, 0], c[:, 0], r[:, 1], c[:, 1]],
+                                     1).astype(np.int32)).to(device)
+    return m, rois
+
+
+def _eq(got, want):
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cp_kernels_match_plain(cuda, shape, dtype):
+    m, rois = _inputs(shape, 1, cuda)
+    m = m.to(dtype)
+    before = ops.cp_count.launches
+    for lv, uv in ((0.25, 0.8), (0.5, 0.5), (0.7, 0.802)):
+        _eq(ops.cp_count(m, rois, lv, uv), ref.cp_count_ref(m, rois, lv, uv))
+    assert ops.cp_count.launches == before + 3
+    rois_q = torch.stack([rois, rois.flip(0)])
+    lvs, uvs = torch.tensor([0.1, 0.6]), torch.tensor([0.5, 3.4e38])
+    _eq(ops.cp_count_multi(m, rois_q, lvs, uvs),
+        ref.cp_count_multi_ref(m, rois_q, lvs, uvs))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mask_agg_kernel_matches_plain(cuda, shape, dtype):
+    m, rois = _inputs(shape, 2, cuda)
+    b, h, w = shape
+    g = m.to(dtype)[: (b // 2) * 2].reshape(b // 2, 2, h, w).contiguous()
+    gi, gu = ops.mask_agg_counts(g, rois[: b // 2], 0.5)
+    wi, wu = ref.mask_agg_counts_ref(g, rois[: b // 2], 0.5)
+    _eq(gi, wi)
+    _eq(gu, wu)
+
+
+@pytest.mark.parametrize("grid", [4, 7, 16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_chi_kernel_matches_plain_with_bin_edge_values(cuda, shape, grid):
+    m, _ = _inputs(shape, 3, cuda)
+    rng = np.random.default_rng(4)
+    pick = torch.from_numpy(rng.random(shape) < 0.3).to(cuda)
+    edge_vals = torch.from_numpy(
+        (rng.integers(0, 17, shape) / 16).astype(np.float32)).to(cuda)
+    m = torch.where(pick, edge_vals, m)
+    edges = torch.arange(1, 16, dtype=torch.float32) / 16
+    _eq(ops.chi_cell_hist(m, edges, grid),
+        ref.chi_cell_hist_ref(m, edges, grid))
+
+
+def test_store_and_queries_match_cpu(cuda):
+    n, h, w = 64, 64, 64
+    rois = object_boxes(n, h, w, seed=1)
+    masks, _ = saliency_masks(n, h, w, seed=0, attacked_fraction=0.15,
+                              boxes=rois)
+    meta = np.zeros(n, MASK_META_DTYPE)
+    meta["mask_id"] = np.arange(n)
+    meta["image_id"] = np.arange(n) // 2
+    meta["mask_type"] = np.arange(n) % 2 + 1
+    cfg = CHIConfig(grid=16, num_bins=16, height=h, width=w)
+    stores = {}
+    for d in ("cpu", cuda):
+        s = MaskStore.create_memory(masks[:32], meta[:32], cfg, device=d)
+        s.append(masks[32:], meta[32:])
+        stores[str(d)] = s
+    np.testing.assert_array_equal(stores["cuda"].chi_host(),
+                                  stores["cpu"].chi_host())
+    for sql in (queries.SCENARIO1_TOPK, queries.SCENARIO2_TOPK,
+                queries.SCENARIO3_IOU):
+        want, _ = queries.run(sql, stores["cpu"], provided_rois=rois)
+        for backend in ("host", "device"):
+            got, _ = queries.run(sql, stores["cuda"], provided_rois=rois,
+                                 backend=backend)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
