@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py      # 16,384 float32 masks of 224x224
+    python3 chip_smoke.py      # 16,384 float32 + 65,536 binary masks, 224x224
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
-1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together);
+1. build the eight CUDA kernels from the four sources in
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
+   together);
 2. ingest 16,384 float32 saliency masks of 224x224 into a
    ``MaskStore`` on the card: ``create_memory`` on the first chunk, then
    ``append`` of the rest chunk by chunk (the CHI kernel's path), and check
@@ -21,19 +22,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    tolerance 0 (every output is an integer count), and time it beside the
    plain version and the card's bound;
 5. run a 64-mask store through the same queries on the card and on the
-   CPU (plain kernel versions) and require identical answers.
+   CPU (plain kernel versions) and require identical answers;
+6. the packed path: 65,536 binary masks (``saliency_masks > 0.5``, made
+   chunk by chunk in worker processes) ingested into a packed ``MaskStore``
+   on the card, the packed filter, top-k and refine queries and
+   ``SCENARIO3_IOU`` on the device and host backends and as naive scans,
+   and one ``fused_counts`` pass per backend; device == host == naive scan,
+   ``fused_bounds_verify`` launched once per verification round, and the
+   same queries on a float store of the first chunk give the packed
+   store's answers;
+7. the four popcount kernels against their plain versions (main-path
+   inputs and edge cases, tolerance 0) and timed beside their bounds.
 
-Kernel launch counters are zeroed just before the main path (phases 2-3,
-indexed queries only) and read just after it; every kernel must have been
-launched there.  The script prints the build, the card, per-query times
-and stats, a ``{"kernels": [...]}`` line and, last, the result line
+Kernel launch counters are zeroed just before each main path (phases 2-3,
+indexed queries only; phase 6, naive scans included, since they carry
+``cp_count_packed``) and read just after it; every kernel of that path must
+have been launched there.  The script prints the build, the card, per-query
+times and stats, a ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it; without either it exits non-zero.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -45,10 +59,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 N_MASKS = 16384
+N_PACKED = 65536
 H = W = 224
 CHUNK = 2048
+PACKED_SEED = 7             # chunk c of the binary masks uses seed 7 + c
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12      # H100 SXM float32 outside the tensor cores
+# 32-bit popcounts per clock per SM, compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput)
+POPC_PER_CLOCK_SM = 16
+
+FLOAT_KERNELS = ("cp_count", "cp_count_multi", "chi_cell_hist",
+                 "mask_agg_counts")
+PACKED_KERNELS = ("cp_count_packed", "cp_count_multi_packed",
+                  "mask_agg_counts_packed", "fused_bounds_verify")
 
 FILTER_SQL = ("SELECT mask_id FROM MasksDatabaseView "
               "WHERE CP(mask, roi, (0.8, 1.0)) / AREA(roi) < 0.02;")
@@ -62,6 +86,14 @@ KERNEL_INFO = {
                       "src/repro/kernels/chi_build.py:33"),
     "mask_agg_counts": ("src/repro_torch/kernels/csrc/mask_agg.cu",
                         "src/repro/kernels/mask_agg.py:25"),
+    "cp_count_packed": ("src/repro_torch/kernels/csrc/popcount.cu",
+                        "src/repro/kernels/popcount.py:108"),
+    "cp_count_multi_packed": ("src/repro_torch/kernels/csrc/popcount.cu",
+                              "src/repro/kernels/popcount.py:146"),
+    "mask_agg_counts_packed": ("src/repro_torch/kernels/csrc/popcount.cu",
+                               "src/repro/kernels/popcount.py:187"),
+    "fused_bounds_verify": ("src/repro_torch/kernels/csrc/popcount.cu",
+                            "src/repro/kernels/popcount.py:290"),
 }
 
 STAT_FIELDS = ("n_candidates", "n_decided_by_bounds", "n_verified", "n_rounds")
@@ -228,6 +260,428 @@ def edge_cases(torch, ops, ref):
     return n_cases
 
 
+def packed_sql(q):
+    roi_cp = "CP(mask, roi, (0.5, 1.5))"
+    offgrid = "CP(mask, (3, 5, 221, 223), (0.5, 1.5))"  # grid-misaligned
+    return [("packed_filter", "SELECT mask_id FROM MasksDatabaseView WHERE "
+             f"{roi_cp} / AREA(roi) < 0.5;"),
+            ("packed_topk", "SELECT mask_id FROM MasksDatabaseView "
+             f"ORDER BY {offgrid} DESC LIMIT 25;"),
+            ("packed_refine", "SELECT mask_id FROM MasksDatabaseView WHERE "
+             f"{roi_cp} > 500 AND NOT CP(mask, full_img, (0.5, 1.5)) < 2000 "
+             f"ORDER BY {offgrid} DESC LIMIT 25;"),
+            ("scenario3_iou", q.SCENARIO3_IOU)]
+
+
+def binary_chunk(job):
+    """Chunk ``c`` of the binary masks: ``saliency_masks > 0.5`` (the
+    binarisation of benchmarks/bench_backend.py) from seed 7 + c, as bool.
+    Runs in a worker process, so the host never holds the float masks of
+    more than a few chunks."""
+    c, boxes = job
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    from repro_torch.data import masks as masks_mod
+    m, _ = masks_mod.saliency_masks(len(boxes), H, W, seed=PACKED_SEED + c,
+                                    attacked_fraction=0.2, boxes=boxes,
+                                    in_box_fraction=0.9)
+    return m > 0.5
+
+
+def record_largest(ops, names, largest):
+    """Wrap the CUDA launchers of kernels ``names`` so that each keeps the
+    arguments of its largest call in ``largest``; returns the undo."""
+    saved = {k.name: k.cuda for k in ops.KERNELS if k.name in names}
+    for k in ops.KERNELS:
+        if k.name not in saved:
+            continue
+
+        def rec(*a, name=k.name, launch=k.cuda):
+            size = a[0].numel()
+            if size >= largest.get(name, (-1, None))[0]:
+                largest[name] = (size, a)
+            return launch(*a)
+        k.cuda = rec
+
+    def undo():
+        for k in ops.KERNELS:
+            if k.name in saved:
+                k.cuda = saved[k.name]
+    return undo
+
+
+def touched_words(torch, rois, h, nw):
+    """(..., 4) ROIs → (..., H, nw) bool: the words of each ROI's rows that
+    its columns touch (rows clipped to [0, H), columns to [0, 32 nw))."""
+    r = rois.to(torch.int64)
+    w32 = 32 * nw
+    r0, r1 = r[..., 0].clamp(0, h), r[..., 2].clamp(0, h)
+    c0, c1 = r[..., 1].clamp(0, w32), r[..., 3].clamp(0, w32)
+    rr = torch.arange(h, device=r.device)
+    kk = torch.arange(nw, device=r.device) * 32
+    rows = (rr >= r0[..., None]) & (rr < r1[..., None])
+    cols = ((kk < c1[..., None]) & (kk + 32 > c0[..., None]) &
+            (c1 > c0)[..., None])
+    return rows[..., :, None] & cols[..., None, :]
+
+
+def packed_bound_of(torch, ref, name, args, popc_per_s):
+    """(bound_ms, bound_by) of a popcount kernel call: the words of ROI rows
+    that the ROI touches, read once (4 B each, plus 16 B per counted ROI,
+    12 B per (q, b) of decided / lb / output for the megakernel, 4 B per
+    other output), over the HBM rate, against one popcount per touched
+    word and counted descriptor (two for MASK_AGG: AND and OR) over the
+    card's popcount rate — whichever is larger."""
+    x = args[0]
+    dev = x.device
+    if name == "mask_agg_counts_packed":
+        n, s, h, nw = x.shape
+        rois = torch.as_tensor(args[1]).to(dev)
+        words = int(touched_words(torch, rois, h, nw).sum())
+        nbytes = words * s * 4 + n * 16 + n * 8
+        popc = 2 * words
+    else:
+        b, h, nw = x.shape
+        rois = torch.as_tensor(args[1]).to(dev).reshape(-1, b, 4)
+        flags = torch.as_tensor(ref._range_flags(args[2], args[3]).reshape(
+            -1, 2)).to(dev)
+        q = rois.shape[0]
+        counted = flags.any(1)[:, None].expand(q, b)
+        out_b = 4
+        if name == "fused_bounds_verify":
+            counted = counted & (torch.as_tensor(args[4]).to(dev) == 0)
+            out_b = 12
+        words = touched_words(torch, rois, h, nw) & counted[..., None, None]
+        popc = int(words.sum())
+        nbytes = (int(words.any(0).sum()) * 4 + int(counted.sum()) * 16 +
+                  q * b * out_b)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = popc / popc_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def packed_edge_cases(torch, ops, ref, pack_masks, dev):
+    """The popcount kernels on the card against their plain versions, with
+    tolerance 0: tail bits (W = 33, 40), empty and unclipped ROIs, columns
+    on word edges, every flag pair from lv/uv/t in {-0.5, 0, 0.5, 1, 1.5},
+    all-decided and none-decided megakernel batches, rows of more than 32
+    words."""
+    vals = (-0.5, 0.0, 0.5, 1.0, 1.5)
+    n_cases = dict.fromkeys(PACKED_KERNELS, 0)
+
+    def check(name, got, want):
+        n_cases[name] += 1
+        if max_abs_err(torch, got, want) != 0:
+            fail(f"{name} differs from its plain version on an edge case")
+
+    for si, (b, h, w) in enumerate([(6, 16, 33), (6, 16, 40), (4, 224, 224),
+                                    (5, 9, 64), (2, 5, 1100)]):
+        rng = np.random.default_rng(300 + si)
+        m = torch.as_tensor(pack_masks(rng.random((b, h, w)) < 0.4).view(
+            np.int32), device=dev)
+        nw = m.shape[2]
+        r = np.sort(rng.integers(0, h + 1, (b, 2)), axis=1)
+        c = np.sort(rng.integers(0, w + 1, (b, 2)), axis=1)
+        rois = np.stack([r[:, 0], c[:, 0], r[:, 1], c[:, 1]], 1)
+        edges = [(0, 0, h, 64), (-3, -5, h + 2, 32 * nw + 9), (2, 3, 2, 20),
+                 (1, 32, h, 64), (0, 31, h, 33), (1, 0, h - 1, 32)]
+        rois[:min(b, len(edges))] = edges[:b]
+        rois = torch.as_tensor(rois.astype(np.int32), device=dev)
+        for lv in vals:
+            for uv in vals:
+                check("cp_count_packed", ops.cp_count_packed(m, rois, lv, uv),
+                      ref.cp_count_packed_ref(m, rois, lv, uv))
+        rois_q = torch.stack([rois, rois.flip(0), rois])
+        lvs, uvs = np.float32([0.5, -0.5, 0.0]), np.float32([1.5, 0.5, 1.0])
+        check("cp_count_multi_packed",
+              ops.cp_count_multi_packed(m, rois_q, lvs, uvs),
+              ref.cp_count_multi_packed_ref(m, rois_q, lvs, uvs))
+        lb = rng.integers(0, 1000, (3, b)).astype(np.int32)
+        for dec in (rng.random((3, b)) < 0.5, np.ones((3, b), bool),
+                    np.zeros((3, b), bool)):
+            dec = dec.astype(np.int32)
+            check("fused_bounds_verify",
+                  ops.fused_bounds_verify(m, rois_q, lvs, uvs, dec, lb),
+                  ref.fused_bounds_verify_ref(m, rois_q, lvs, uvs, dec, lb))
+        grp = m[: (b // 2) * 2].reshape(b // 2, 2, h, nw).contiguous()
+        for t in vals:
+            check("mask_agg_counts_packed",
+                  ops.mask_agg_counts_packed(grp, rois[: b // 2], t),
+                  ref.mask_agg_counts_packed_ref(grp, rois[: b // 2], t))
+    torch.cuda.synchronize()
+    return n_cases
+
+
+def ingest(torch, MaskStore, cfg, dev, meta, chunks, ops, packed):
+    """``create_memory`` on the first chunk, then ``append`` of the rest,
+    each call timed to its end on the card.  Returns the store, the first
+    chunk and the last."""
+    label = "packed ingest" if packed else "ingest"
+    chunks = iter(chunks)
+    first = next(chunks)
+    t1 = time.perf_counter()
+    store = MaskStore.create_memory(first, meta[:len(first)], cfg,
+                                    packed=packed, device=dev)
+    torch.cuda.synchronize()
+    t_create = time.perf_counter() - t1
+    t_app, last, at = [], first, len(first)
+    for chunk in chunks:
+        t1 = time.perf_counter()
+        store.append(chunk, meta[at:at + len(chunk)])
+        torch.cuda.synchronize()
+        t_app.append(time.perf_counter() - t1)
+        at += len(chunk)
+        last = chunk
+    print(f"{label}: create_memory({len(first)}) {t_create:.3f} s, "
+          f"{len(t_app)} x append({CHUNK}) {sum(t_app):.3f} s "
+          f"(each {', '.join(f'{t:.3f}' for t in t_app)}), "
+          f"total {t_create + sum(t_app):.3f} s; chi_cell_hist launches "
+          f"{ops.launch_counts()['chi_cell_hist']}")
+    return store, first, last
+
+
+def run_queries(torch, tq, ops, store, sqls, provided, prefix):
+    """Each query on the device backend, then the host backend; prints the
+    wall time, ``ExecStats`` and kernel launches of each run."""
+    results: dict = {}
+    for qname, sql in sqls:
+        for be in ("device", "host"):
+            before = ops.launch_counts()
+            t1 = time.perf_counter()
+            res, stats = tq.run(sql, store, provided_rois=provided,
+                                backend=be)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            after = ops.launch_counts()
+            launches = {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+            results[(qname, be)] = (res, stats, launches)
+            n_out = len(res[0]) if isinstance(res, tuple) else len(res)
+            print(f"{prefix}query {qname} backend={be}: {wall:.3f} s, "
+                  f"{n_out} ids, "
+                  + json.dumps({f: getattr(stats, f) for f in STAT_FIELDS
+                                + ("bytes_loaded", "chi_bytes")})
+                  + f", launches {json.dumps(launches)}")
+    return results
+
+
+def naive_scans(torch, tq, store, sqls, provided):
+    out = {}
+    for qname, sql in sqls:
+        t1 = time.perf_counter()
+        res, stats = tq.run(sql, store, provided_rois=provided,
+                            use_index=False)
+        torch.cuda.synchronize()
+        out[qname] = (res, stats, time.perf_counter() - t1)
+    return out
+
+
+def check_answers(results, naive, sqls, prefix):
+    """Device == host (answers and ``ExecStats`` counts) == naive scan."""
+    for qname, _ in sqls:
+        rd, sd, _ = results[(qname, "device")]
+        rh, sh, _ = results[(qname, "host")]
+        if not same_answer(rd, rh):
+            fail(f"{prefix}{qname}: device and host answers differ")
+        for f in STAT_FIELDS:
+            if getattr(sd, f) != getattr(sh, f):
+                fail(f"{prefix}{qname}: {f} differs (device "
+                     f"{getattr(sd, f)}, host {getattr(sh, f)})")
+        if isinstance(rd, tuple) and not np.all(np.isfinite(rd[1])):
+            fail(f"{prefix}{qname}: non-finite scores")
+        rn, sn, secs = naive[qname]
+        if not same_answer(rd, rn):
+            fail(f"{prefix}{qname}: indexed answer differs from the naive "
+                 f"scan")
+        print(f"{prefix}check {qname}: device == host == naive scan "
+              f"({sn.n_verified} masks scanned in {secs:.3f} s)")
+
+
+def kernel_entry(torch, ops, name, a, plain, launches, n_edge, bound):
+    """Hold a kernel against its plain version on its largest main-path
+    call (tolerance 0), time both, and return its ``kernels`` entry."""
+    k = getattr(ops, name)
+    got = k(*a)
+    want = plain(*a)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want)
+    if err != 0:
+        fail(f"{name} differs from its plain version at main-path shape "
+             f"{tuple(a[0].shape)} (max abs err {err})")
+    ms = time_ms(torch, lambda: k(*a))
+    plain_ms = time_ms(torch, lambda: plain(*a), reps=3, warmup=1)
+    bound_ms, bound_by = bound(name, a)
+    src, replaces = KERNEL_INFO[name]
+    print(f"parity {name}: main-path shape {tuple(a[0].shape)} "
+          f"{str(a[0].dtype).replace('torch.', '')} equal, "
+          f"{n_edge} edge cases equal; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), library none")
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": int(launches),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def fused_specs(provided):
+    """The scheduler pass's 8 descriptors over masks whose ROIs are
+    ``provided``: per-mask boxes, full image, the grid-misaligned ROI, word
+    edges, an empty ROI, and every CP flag pair."""
+    n = len(provided)
+
+    def const(r):
+        return np.tile(np.asarray(r, np.int32), (n, 1))
+
+    full = const([0, 0, H, W])
+    return [(provided, 0.5, 1.5), (full, 0.5, 1.5), (full, -0.5, 0.5),
+            (const([3, 5, 221, 223]), 0.5, 1.5), (provided, 0.0, 1.0),
+            (const([0, 32, 224, 64]), 0.5, float("inf")),
+            (const([100, 0, 150, 224]), 1.0, 1.5),
+            (const([10, 10, 10, 100]), 0.5, 1.5)]
+
+
+def card_popcount_rate(torch) -> float:
+    """32-bit popcounts per second at the card's maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = POPC_PER_CLOCK_SM * sms * mhz * 1e6
+    print(f"popcount rate: {POPC_PER_CLOCK_SM} x {sms} SMs x {mhz:.0f} MHz "
+          f"= {rate:.4g}/s")
+    return rate
+
+
+def packed_phase(torch, dev, n):
+    """Phases 6-7: the packed path on ``n`` binary masks; returns the four
+    popcount kernels' ``kernels`` entries."""
+    from repro_torch.core import CHIConfig, MaskStore, build_chi_np
+    from repro_torch.core import get_backend
+    from repro_torch.core import queries as tq
+    from repro_torch.core.packing import pack_masks
+    from repro_torch.core.store import MASK_META_DTYPE
+    from repro_torch.data import masks as masks_mod
+    from repro_torch.kernels import ops, ref
+
+    cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
+    rois = masks_mod.object_boxes(n, H, W, seed=1)
+    meta = make_meta(n, MASK_META_DTYPE)
+    provided = rois[meta["mask_id"]]
+    sqls = packed_sql(tq)
+    jobs = [(c, rois[s:s + CHUNK]) for c, s in enumerate(range(0, n, CHUNK))]
+    workers = min(8, os.cpu_count() or 1)
+    largest: dict = {}
+    undo = record_largest(ops, PACKED_KERNELS + ("chi_cell_hist",), largest)
+
+    # -- 6. the packed main path: ingest, indexed queries, naive scans (the
+    # cp_count_packed path) and the scheduler's fused pass
+    # data (set-up, not timed as ingest): bool chunks, 100 MB each
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        chunks = list(pool.map(binary_chunk, jobs))
+    print(f"packed data: {n} binary masks {H}x{W} in "
+          f"{time.perf_counter() - t0:.1f} s ({workers} worker processes)")
+    ops.reset_launches()
+    store, first, last = ingest(torch, MaskStore, cfg, dev, meta, chunks,
+                                ops, packed=True)
+    del chunks
+    words_gb = store.device_masks().numel() * 4 / 1e9
+    print(f"packed store: {n} masks {H}x{W} as {store.words} words a row, "
+          f"{words_gb:.2f} GB of words and "
+          f"{store.chi_table.numel() * 4 / 1e9:.2f} GB of finest CHI on the "
+          f"card")
+    results = run_queries(torch, tq, ops, store, sqls, provided, "packed ")
+    naive = naive_scans(torch, tq, store, sqls, provided)
+    pos = np.arange(0, n, max(n // 4096, 1))[:4096]
+    specs = fused_specs(provided[pos])
+    fused = {}
+    for be in ("device", "host"):
+        t1 = time.perf_counter()
+        fused[be] = get_backend(store, be).fused_counts(store, pos, specs)
+        torch.cuda.synchronize()
+        print(f"packed fused_counts backend={be}: {len(specs)} descriptors "
+              f"x {len(pos)} masks in {time.perf_counter() - t1:.3f} s")
+    packed_launches = ops.launch_counts()
+    undo()
+    print(f"packed path launches: {json.dumps(packed_launches)}")
+    for k in PACKED_KERNELS + ("chi_cell_hist",):
+        if packed_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the packed path")
+
+    # ingest: the last appended chunk's words and CHI (built on the card)
+    sample = slice(0, 64)
+    at = n - len(last)
+    want_words = pack_masks(last[sample]).view(np.int32)
+    if not np.array_equal(
+            store.device_masks()[at:at + 64].cpu().numpy(), want_words):
+        fail("packed words on the card differ from pack_masks")
+    if not np.array_equal(store.chi_host(np.arange(at, at + 64)),
+                          build_chi_np(last[sample].astype(np.float32),
+                                       cfg)):
+        fail("packed ingest: CHI differs from build_chi_np")
+    print("packed ingest check: last chunk's words and CHI equal pack_masks "
+          "and build_chi_np on a 64-mask sample")
+
+    check_answers(results, naive, sqls, "packed ")
+    for qname, _ in sqls[:3]:
+        for be in ("device", "host"):
+            _, stats, launches = results[(qname, be)]
+            if launches.get("fused_bounds_verify", 0) != stats.n_rounds:
+                fail(f"packed {qname} on {be}: fused_bounds_verify launched "
+                     f"{launches.get('fused_bounds_verify', 0)} times in "
+                     f"{stats.n_rounds} verification rounds")
+    res, stats, _ = results[("packed_refine", "device")]
+    if len(res[0]) == 0 or stats.n_verified == 0:
+        fail("packed_refine: empty answer or nothing verified")
+    print("packed check: fused_bounds_verify launched once per verification "
+          "round on every CP query and backend")
+    if not np.array_equal(fused["device"], fused["host"]):
+        fail("packed fused_counts: device and host differ")
+    print("packed check: fused_counts identical on device and host")
+
+    # the same queries on a float store of the first chunk's binary masks
+    fl = MaskStore.create_memory(first.astype(np.float32), meta[:len(first)],
+                                 cfg, device=dev)
+    pk = MaskStore.create_memory(first, meta[:len(first)], cfg, packed=True,
+                                 device=dev)
+    for qname, sql in sqls:
+        want, _ = tq.run(sql, fl, provided_rois=provided, backend="device")
+        got, _ = tq.run(sql, pk, provided_rois=provided, backend="device")
+        if not same_answer(got, want):
+            fail(f"packed vs float store, first chunk: {qname} differs")
+    print(f"packed check: the four queries on {len(first)} masks give the "
+          f"same ids and scores from a packed and a float store")
+    del store, results, naive, fl, pk
+
+    # -- 7. the popcount kernels against their plain versions ---------------
+    n_edge = packed_edge_cases(torch, ops, ref, pack_masks, dev)
+    rate = card_popcount_rate(torch)
+    plain = {"cp_count_packed": ref.cp_count_packed_ref,
+             "cp_count_multi_packed": ref.cp_count_multi_packed_ref,
+             "mask_agg_counts_packed": ref.mask_agg_counts_packed_ref,
+             "fused_bounds_verify": ref.fused_bounds_verify_ref}
+    entries = [kernel_entry(
+        torch, ops, name, largest[name][1], plain[name],
+        packed_launches[name], n_edge[name],
+        lambda name, a: packed_bound_of(torch, ref, name, a, rate))
+        for name in PACKED_KERNELS]
+    a = largest["chi_cell_hist"][1]
+    hist = ops.chi_cell_hist(*a)
+    if max_abs_err(torch, hist, ref.chi_cell_hist_ref(*a)) != 0:
+        fail("chi_cell_hist differs from its plain version on binary masks")
+    per_bin = hist.sum(dim=(0, 1, 2)).double() / a[0].numel()
+    ms = time_ms(torch, lambda: ops.chi_cell_hist(*a))
+    bound_ms, bound_by = bound_of(torch, ref, "chi_cell_hist", a)
+    print(f"chi_cell_hist on binary masks: shape {tuple(a[0].shape)} equal, "
+          f"{float(per_bin[0] + per_bin[-1]):.4f} of pixels in the first and "
+          f"last bins; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), {ms / bound_ms:.2f}x; "
+          f"{packed_launches['chi_cell_hist']} launches on the packed path")
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -276,65 +730,19 @@ def main() -> int:
 
     # record each kernel's largest main-path call, for the parity phase
     largest: dict = {}
-    launchers = {k.name: k.cuda for k in ops.KERNELS}
-
-    def recording(kernel):
-        launch = launchers[kernel.name]
-
-        def rec(*a):
-            size = a[0].numel()
-            if size >= largest.get(kernel.name, (-1, None))[0]:
-                largest[kernel.name] = (size, a)
-            return launch(*a)
-        kernel.cuda = rec
-
-    for k in ops.KERNELS:
-        recording(k)
+    undo = record_largest(ops, FLOAT_KERNELS, largest)
 
     # -- 2-3. the main path: ingest + indexed queries -----------------------
     ops.reset_launches()
-    t0 = time.perf_counter()
-    store = MaskStore.create_memory(masks[:CHUNK], meta[:CHUNK], cfg,
-                                    device=dev)
-    t_create = time.perf_counter() - t0
-    t_app = []
-    for s in range(CHUNK, n, CHUNK):
-        t1 = time.perf_counter()
-        store.append(masks[s:s + CHUNK], meta[s:s + CHUNK])
-        torch.cuda.synchronize()
-        t_app.append(time.perf_counter() - t1)
-    ingest_s = time.perf_counter() - t0
-    ingest_launch = ops.launch_counts()
-    print(f"ingest: create_memory({CHUNK}) {t_create:.3f} s, "
-          f"{len(t_app)} x append({CHUNK}) {sum(t_app):.3f} s "
-          f"(each {', '.join(f'{t:.3f}' for t in t_app)}), "
-          f"total {ingest_s:.3f} s; chi_cell_hist launches "
-          f"{ingest_launch['chi_cell_hist']}")
-
+    store, _, _ = ingest(torch, MaskStore, cfg, dev, meta,
+                      (masks[s:s + CHUNK] for s in range(0, n, CHUNK)),
+                      ops, packed=False)
     provided = rois[meta["mask_id"]]
-    results: dict = {}
-    for qname, sql in sql_set(tq):
-        for be in ("device", "host"):
-            before = ops.launch_counts()
-            t1 = time.perf_counter()
-            res, stats = tq.run(sql, store, provided_rois=provided,
-                                backend=be)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-            after = ops.launch_counts()
-            launches = {k: after[k] - before[k] for k in after
-                        if after[k] != before[k]}
-            results[(qname, be)] = (res, stats)
-            n_out = len(res[0]) if isinstance(res, tuple) else len(res)
-            print(f"query {qname} backend={be}: {wall:.3f} s, {n_out} ids, "
-                  + json.dumps({f: getattr(stats, f) for f in STAT_FIELDS
-                                + ("bytes_loaded", "chi_bytes")})
-                  + f", launches {json.dumps(launches)}")
+    results = run_queries(torch, tq, ops, store, sql_set(tq), provided, "")
     main_launches = ops.launch_counts()
-    for k in ops.KERNELS:
-        k.cuda = launchers[k.name]
-    for k, c in main_launches.items():
-        if c <= 0:
+    undo()
+    for k in FLOAT_KERNELS:
+        if main_launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
 
     # ingest check: appended CHI chunks against the numpy oracle
@@ -348,24 +756,8 @@ def main() -> int:
           f"equal build_chi_np on 64-mask samples")
 
     # device == host, and both == the naive scan
-    for qname, sql in sql_set(tq):
-        (rd, sd), (rh, sh) = results[(qname, "device")], results[(qname, "host")]
-        if not same_answer(rd, rh):
-            fail(f"{qname}: device and host answers differ")
-        for f in STAT_FIELDS:
-            if getattr(sd, f) != getattr(sh, f):
-                fail(f"{qname}: {f} differs (device {getattr(sd, f)}, "
-                     f"host {getattr(sh, f)})")
-        if isinstance(rd, tuple) and not np.all(np.isfinite(rd[1])):
-            fail(f"{qname}: non-finite scores")
-        t1 = time.perf_counter()
-        rn, sn = tq.run(sql, store, provided_rois=provided, use_index=False)
-        torch.cuda.synchronize()
-        if not same_answer(rd, rn):
-            fail(f"{qname}: indexed answer differs from the naive scan")
-        print(f"check {qname}: device == host == naive scan "
-              f"({sn.n_verified} masks scanned in "
-              f"{time.perf_counter() - t1:.3f} s)")
+    naive = naive_scans(torch, tq, store, sql_set(tq), provided)
+    check_answers(results, naive, sql_set(tq), "")
 
     # -- 4. kernels against their plain versions ----------------------------
     n_edge = edge_cases(torch, ops, ref)
@@ -373,32 +765,10 @@ def main() -> int:
              "cp_count_multi": ref.cp_count_multi_ref,
              "chi_cell_hist": ref.chi_cell_hist_ref,
              "mask_agg_counts": ref.mask_agg_counts_ref}
-    kernels = []
-    for k in ops.KERNELS:
-        _, a = largest[k.name]
-        got = k(*a)
-        want = plain[k.name](*a)
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        if err != 0:
-            fail(f"{k.name} differs from its plain version at main-path "
-                 f"shape {tuple(a[0].shape)} (max abs err {err})")
-        ms = time_ms(torch, lambda k=k, a=a: k(*a))
-        plain_ms = time_ms(torch, lambda f=plain[k.name], a=a: f(*a), reps=3,
-                           warmup=1)
-        bound_ms, bound_by = bound_of(torch, ref, k.name, a)
-        src, replaces = KERNEL_INFO[k.name]
-        print(f"parity {k.name}: main-path shape {tuple(a[0].shape)} "
-              f"{str(a[0].dtype).replace('torch.', '')} equal, "
-              f"{n_edge[k.name]} edge cases equal; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), library none")
-        kernels.append({"name": k.name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": int(main_launches[k.name]),
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+    kernels = [kernel_entry(torch, ops, name, largest[name][1], plain[name],
+                            main_launches[name], n_edge[name],
+                            lambda name, a: bound_of(torch, ref, name, a))
+               for name in FLOAT_KERNELS]
 
     # -- 5. a small store: card vs CPU --------------------------------------
     sm_masks, sm_rois = make_data(64, 64, 64, masks_mod)
@@ -422,6 +792,11 @@ def main() -> int:
                 fail(f"small store {qname} on {be}: card differs from CPU")
     print("small store: 64 masks 64x64, four queries identical on the card "
           "(device and host backends) and on the CPU")
+    del store, masks, results, largest, stores
+    torch.cuda.empty_cache()
+
+    # -- 6-7. the packed path, then its kernels -----------------------------
+    kernels += packed_phase(torch, dev, N_PACKED)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

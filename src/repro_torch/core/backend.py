@@ -18,9 +18,14 @@ Four primitives cover every plan the IR can express:
                                      group verification.
 
 plus ``fused_counts`` — the service scheduler's cross-query
-``cp_count_multi`` pass, run on whichever backend owns the store.  The
-dual-mask pair primitives and the packed tier's megakernel route raise
-``NotImplementedError`` until their slices port the kernels.
+``cp_count_multi`` pass, run on whichever backend owns the store — and,
+for packed stores, ``fused_verify_counts``: the bounds+verify megakernel
+route, one launch per verification batch.  The dual-mask pair primitives
+raise ``NotImplementedError`` until their slice ports the kernels.
+
+Packed stores (DESIGN.md §12) run the same primitives on the popcount
+kernels; their words reach torch as the int32 bit view of the store's
+uint32 words (``packing.torch_bits``).
 
 Two implementations:
 
@@ -49,6 +54,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..obs.metrics import REGISTRY as _REG
+from . import packing
 from .distributed import _bounds_from_corners, device_resolve, value_ks
 
 F32_MAX = 3.4e38  # finite stand-in for +inf in float32 kernel compares
@@ -93,12 +99,36 @@ def _device_of(store) -> torch.device:
 
 
 def _to(arr, device) -> torch.Tensor:
-    """A host array as a tensor on ``device`` (no copy for a CPU device)."""
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    """A host array as a tensor on ``device`` (no copy for a CPU device;
+    packed uint32 words as their int32 bit view)."""
+    return torch.from_numpy(packing.torch_bits(arr)).to(device)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def chi_verdicts(terms, batch: np.ndarray, bounds_of):
+    """Assemble the megakernel's CHI-verdict inputs from memoized bounds.
+
+    ``bounds_of(term) -> (lb, ub) | None`` is a *memo-only* getter: a term
+    whose filter-phase bounds were never computed returns None and is simply
+    treated as undecided everywhere — always correct, never an extra bounds
+    pass.  Returns ``decided`` (Q, B) int32 0/1 and ``lb`` (Q, B) int32
+    aligned with ``terms`` × ``batch``."""
+    q, b = len(terms), len(batch)
+    decided = np.zeros((q, b), np.int32)
+    lb_out = np.zeros((q, b), np.int32)
+    for i, t in enumerate(terms):
+        bnd = bounds_of(t) if bounds_of is not None else None
+        if bnd is None:
+            continue
+        tlb = np.asarray(bnd[0])[batch]
+        tub = np.asarray(bnd[1])[batch]
+        eq = tlb == tub
+        decided[i] = eq
+        lb_out[i] = np.where(eq, tlb, 0)
+    return decided, lb_out
 
 
 class ExecBackend:
@@ -138,13 +168,33 @@ class ExecBackend:
 
     def fused_verify_counts(self, ctx, batch: np.ndarray, terms,
                             bounds_of=None) -> dict:
-        """The packed tier's bounds+verify megakernel route.  Float stores
-        take the classic per-term :meth:`verify_counts` path, so drivers
-        can call this unconditionally; packed stores raise until the
-        bitpacked slice ports the megakernel."""
-        if is_packed(getattr(ctx, "store", None)):
-            raise _later("the packed bounds+verify megakernel")
-        return self.verify_counts(ctx, batch, list(terms))
+        """The bounds+verify megakernel route (packed stores, DESIGN.md
+        §12): one launch answers *every* CP descriptor of a verification
+        batch — CHI-decided (term, mask) entries (memoized lb == ub) pass
+        their bound straight through, the undecided remainder is counted
+        from the packed words.  ``bounds_of(term) -> (lb, ub) | None`` is a
+        memo-only getter over the run's filter-phase bounds; None →
+        undecided (always correct).  Float stores take the classic
+        per-term :meth:`verify_counts` path, so drivers can call this
+        unconditionally."""
+        terms = list(terms)
+        if not is_packed(getattr(ctx, "store", None)):
+            return self.verify_counts(ctx, batch, terms)
+        batch = np.asarray(batch)
+        pos = ctx.positions[batch]
+        rois_q, lvs, uvs = spec_arrays(
+            [(ctx.resolve_rois(t.roi, pos), t.lv, t.uv) for t in terms])
+        decided, lb = chi_verdicts(terms, batch, bounds_of)
+        counts = self._fused_verify_batch(ctx, batch, pos, rois_q, lvs, uvs,
+                                          decided, lb)
+        return {t: np.asarray(counts[i], np.float64)
+                for i, t in enumerate(terms)}
+
+    def _fused_verify_batch(self, ctx, batch, pos, rois_q, lvs, uvs,
+                            decided, lb) -> np.ndarray:
+        """Physical megakernel dispatch: packed batch rows + assembled
+        descriptors/verdicts → (Q, B) int32 exact counts."""
+        raise NotImplementedError
 
     def fused_counts(self, store, positions: np.ndarray,
                      specs) -> np.ndarray:
@@ -199,29 +249,41 @@ class HostBackend(ExecBackend):
         return possible.copy()
 
     def mask_agg_counts(self, gctx, node, gidx):
-        if is_packed(gctx.store):
-            raise _later("the packed MASK_AGG popcount kernel")
         gidx = np.asarray(gidx)
         s = gctx.groups.shape[1]
         flat_idx = (gidx[:, None] * s + np.arange(s)[None, :]).reshape(-1)
         masks = gctx._ctx.masks_for(flat_idx)
+        # row shape is (H, W) float or (H, words) packed — keep it as-is
         masks = masks.reshape((len(gidx), s) + masks.shape[1:])
         rois = gctx.resolve_group_rois(node.roi, gidx)
-        # fused threshold+agg+count → the CUDA mask_agg kernel on the card
+        # fused threshold+agg+count → the CUDA kernel on the card
+        kernel = (kops.mask_agg_counts_packed if is_packed(gctx.store)
+                  else kops.mask_agg_counts)
         dev = _device_of(gctx.store)
-        inter, union = kops.mask_agg_counts(_to(masks, dev), _to(rois, dev),
-                                            node.thresh)
+        inter, union = kernel(_to(masks, dev), _to(rois, dev), node.thresh)
         counts = inter if node.agg == "intersect" else union
         return _host(counts).astype(np.float64)
 
     def fused_counts(self, store, positions, specs):
-        if is_packed(store):
-            raise _later("the packed multi-query popcount kernel")
         masks = store.load(positions)
-        rois_q, lvs, uvs = spec_arrays(specs, masks.dtype)
         dev = _device_of(store)
+        if is_packed(store):
+            # lv/uv stay on the host: the wrapper turns them into flags
+            rois_q, lvs, uvs = spec_arrays(specs)
+            return _host(kops.cp_count_multi_packed(
+                _to(masks, dev), _to(rois_q, dev), lvs, uvs))
+        rois_q, lvs, uvs = spec_arrays(specs, masks.dtype)
         return _host(kops.cp_count_multi(_to(masks, dev), _to(rois_q, dev),
                                          _to(lvs, dev), _to(uvs, dev)))
+
+    def _fused_verify_batch(self, ctx, batch, pos, rois_q, lvs, uvs,
+                            decided, lb):
+        # masks_for meters the load (in packed bytes) and shares rows with
+        # any other term touching the same candidates.
+        dev = _device_of(ctx.store)
+        return _host(kops.fused_bounds_verify(
+            _to(ctx.masks_for(batch), dev), _to(rois_q, dev), lvs, uvs,
+            _to(decided, dev), _to(lb, dev)))
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +319,27 @@ def _device_group_counts(masks, flat_pos, rois, thresh, s: int):
     n = flat_pos.shape[0] // s
     grp = grp.reshape(n, s, masks.shape[1], masks.shape[2])
     return kops.mask_agg_counts(grp, rois, thresh)
+
+
+def _device_multi_counts_packed(packed, pos, rois_q, lvs, uvs):
+    """Packed-tier sibling of :func:`_device_multi_counts` (``lvs``/``uvs``
+    host float32 arrays, turned into flags by the wrapper)."""
+    return kops.cp_count_multi_packed(packed.index_select(0, pos), rois_q,
+                                      lvs, uvs)
+
+
+def _device_group_counts_packed(packed, flat_pos, rois, thresh, s: int):
+    grp = packed.index_select(0, flat_pos)
+    n = flat_pos.shape[0] // s
+    grp = grp.reshape(n, s, packed.shape[1], packed.shape[2])
+    return kops.mask_agg_counts_packed(grp, rois, thresh)
+
+
+def _device_fused_verify(packed, pos, rois_q, lvs, uvs, decided, lb):
+    """Gather a verification batch from the resident packed words and run
+    the bounds+verify megakernel — one launch for the whole batch."""
+    return kops.fused_bounds_verify(packed.index_select(0, pos), rois_q,
+                                    lvs, uvs, decided, lb)
 
 
 class _KthValueMixin:
@@ -304,11 +387,11 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
     name = "device"
 
     def __init__(self, store):
-        if is_packed(store):
-            raise _later("the packed device tier")
         self.store = store
         self.cfg = store.cfg
         self.device = _device_of(store)
+        # resident masks: float pixels, or packed words as int32 bit views
+        self._packed = is_packed(store)
         self._masks = store.device_masks()
         self._tables = store.chi_table
         self._epoch = getattr(store, "epoch", 0)
@@ -370,12 +453,27 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
         pos = ctx.positions[batch]
         rois_q, lvs, uvs = spec_arrays(
             [(ctx.resolve_rois(t.roi, pos), t.lv, t.uv) for t in terms])
-        counts = _host(_device_multi_counts(
-            self._masks, _to(np.asarray(pos, np.int64), self.device),
-            _to(rois_q, self.device), _to(lvs, self.device),
-            _to(uvs, self.device)))
+        counts = self._multi_counts(pos, rois_q, lvs, uvs)
         return {t: counts[i].astype(np.float64)
                 for i, t in enumerate(terms)}
+
+    def _multi_counts(self, positions, rois_q, lvs, uvs) -> np.ndarray:
+        """Q descriptors over the resident rows at ``positions`` → (Q, B)."""
+        pos = _to(np.asarray(positions, np.int64), self.device)
+        rois_q = _to(rois_q, self.device)
+        if self._packed:
+            return _host(_device_multi_counts_packed(self._masks, pos, rois_q,
+                                                     lvs, uvs))
+        return _host(_device_multi_counts(
+            self._masks, pos, rois_q, _to(lvs, self.device),
+            _to(uvs, self.device)))
+
+    def _fused_verify_batch(self, ctx, batch, pos, rois_q, lvs, uvs,
+                            decided, lb):
+        return _host(_device_fused_verify(
+            self._masks, _to(np.asarray(pos, np.int64), self.device),
+            _to(rois_q, self.device), lvs, uvs, _to(decided, self.device),
+            _to(lb, self.device)))
 
     def topk_candidates(self, lb, ub, k, desc, definite, possible):
         if k <= 0 or int(np.count_nonzero(definite)) < k:
@@ -392,18 +490,16 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
         s = gctx.groups.shape[1]
         flat = gctx.groups[gidx].reshape(-1)
         rois = gctx.resolve_group_rois(node.roi, gidx)
-        inter, union = _device_group_counts(
+        group_counts = (_device_group_counts_packed if self._packed
+                        else _device_group_counts)
+        inter, union = group_counts(
             self._masks, _to(np.asarray(flat, np.int64), self.device),
             _to(rois.astype(np.int32), self.device), node.thresh, int(s))
         counts = inter if node.agg == "intersect" else union
         return _host(counts).astype(np.float64)
 
     def fused_counts(self, store, positions, specs):
-        rois_q, lvs, uvs = spec_arrays(specs)
-        return _host(_device_multi_counts(
-            self._masks, _to(np.asarray(positions, np.int64), self.device),
-            _to(rois_q, self.device), _to(lvs, self.device),
-            _to(uvs, self.device)))
+        return self._multi_counts(positions, *spec_arrays(specs))
 
 
 # ---------------------------------------------------------------------------
@@ -449,4 +545,5 @@ def get_backend(store, backend=None) -> ExecBackend:
 
 
 __all__ = ["ExecBackend", "HostBackend", "DeviceBackend", "F32_MAX",
-           "get_backend", "host_backend", "is_packed", "spec_arrays"]
+           "chi_verdicts", "get_backend", "host_backend", "is_packed",
+           "spec_arrays"]

@@ -32,6 +32,7 @@ import torch
 from ..kernels import ops as kops
 from . import chi as chi_lib
 from . import cp as cp_lib
+from . import packing
 
 _INF = np.float64(np.inf)
 
@@ -635,15 +636,25 @@ class MaskEvalContext:
         buf, heights = self.store.load_rows(self.positions[idx], spans)
         local = np.stack([np.zeros(len(idx), np.int64), rois[:, 1],
                           heights.astype(np.int64), rois[:, 3]], axis=1)
-        _require_float(self.store)
-        counts = kops.cp_count(
+        # packed rows are uint32 words; column coords are unchanged (the
+        # packed layout is per-row, so a row span packs identically)
+        counts = self._cp_kernel_of()(
             self._on_device(buf), self._on_device(local.astype(np.int32)),
             node.lv, min(node.uv, 3.4e38))
         return counts.cpu().numpy().astype(np.float64)
 
+    def _cp_kernel_of(self):
+        """The CP verification kernel for this store's tier: ``cp_count``
+        (lv/uv rounded to the mask dtype) or ``cp_count_packed`` (lv/uv
+        rounded to float32, then range flags)."""
+        if getattr(self.store, "packed", False):
+            return kops.cp_count_packed
+        return kops.cp_count
+
     def _on_device(self, arr: np.ndarray) -> torch.Tensor:
-        """A host batch moved to the store's device for a kernel launch."""
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        """A host batch moved to the store's device for a kernel launch
+        (packed words as their int32 bit view)."""
+        return torch.from_numpy(packing.torch_bits(arr)).to(self.device)
 
     def _eval_tree(self, node: Node, idx: np.ndarray, cp_eval) -> np.ndarray:
         """Shared exact-evaluation walker.  CP leaves delegate to ``cp_eval``
@@ -670,22 +681,15 @@ class MaskEvalContext:
         masks = self.masks_for(idx)
         rois = _as_rois(node.roi, self.positions[idx], self.provided_rois,
                         self.cfg)
-        # verification hot path → the CUDA cp_count kernel on the card, its
-        # plain torch version on the CPU (lv/uv round to the mask dtype)
-        _require_float(self.store)
-        counts = kops.cp_count(self._on_device(masks), self._on_device(rois),
-                               node.lv, min(node.uv, 3.4e38))
+        # verification hot path → the CUDA kernel on the card, its plain
+        # torch version on the CPU
+        counts = self._cp_kernel_of()(
+            self._on_device(masks), self._on_device(rois), node.lv,
+            min(node.uv, 3.4e38))
         return counts.cpu().numpy().astype(np.float64)
 
     def _exact_node(self, node: Node, idx: np.ndarray) -> np.ndarray:
         return self._eval_tree(node, idx, self._cp_exact)
-
-
-def _require_float(store) -> None:
-    if getattr(store, "packed", False):
-        raise NotImplementedError(
-            "packed-tier verification (popcount kernels) is ported in a "
-            "later slice")
 
 
 def eval_with_counts(ctx: "MaskEvalContext", node: Node, idx: np.ndarray,

@@ -14,6 +14,11 @@ Packing is lossless only for binary inputs, so ingest validates values are
 exactly {0.0, 1.0}; CP semantics on the packed tier reduce to an exact
 integer decomposition (see kernels/popcount.py) that is bit-identical to
 the float kernels on the same data.
+
+On torch the words travel as an ``int32`` bit view (:func:`torch_bits`):
+torch's ``uint32`` has no shifts, no ``~`` and no ``index_copy_`` on the
+CPU, and no broader support on CUDA.  Every numpy surface (``load``,
+``resident_masks``, I/O metering) stays ``uint32``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["words_for", "packed_row_nbytes", "validate_binary",
-           "pack_masks", "unpack_masks"]
+           "pack_masks", "unpack_masks", "torch_bits"]
 
 WORD_BITS = 32
 
@@ -63,6 +68,14 @@ def pack_masks(masks: np.ndarray) -> np.ndarray:
     packed = np.packbits(bits, axis=-1, bitorder="little")
     packed = np.ascontiguousarray(packed).view("<u4")
     return packed.astype(np.uint32, copy=False)
+
+
+def torch_bits(arr: np.ndarray) -> np.ndarray:
+    """The host array to hand to ``torch.from_numpy``: packed ``uint32``
+    words as their ``int32`` bit view (same bytes, no copy), anything else
+    as it is."""
+    arr = np.ascontiguousarray(arr)
+    return arr.view(np.int32) if arr.dtype == np.uint32 else arr
 
 
 def unpack_masks(packed: np.ndarray, width: int,

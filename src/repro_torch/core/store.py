@@ -70,8 +70,10 @@ _DIRTY_LOG_MAX = 256
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A device copy of a host array — always a copy, never a view, so the
     in-place device updates below cannot write through into host buffers
-    (``torch.from_numpy`` alone would alias them on a CPU device)."""
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, copy=True)
+    (``torch.from_numpy`` alone would alias them on a CPU device).  Packed
+    ``uint32`` words land as their ``int32`` bit view
+    (:func:`packing.torch_bits`)."""
+    return torch.from_numpy(packing.torch_bits(arr)).to(device, copy=True)
 
 
 def _index(positions, device: torch.device) -> torch.Tensor:
@@ -233,7 +235,8 @@ class MaskStore:
         self.root = root
         # Bitpacked binary tier (DESIGN.md §12): mask rows live as
         # little-endian uint32 words, 1 bit/pixel.  `masks` (and every
-        # load/resident/device surface) then carries (…, H, words) uint32.
+        # load/resident surface) then carries (…, H, words) uint32; the
+        # device copy holds the same bits as int32 (packing.torch_bits).
         self.packed = bool(packed)
         self.words = packing.words_for(cfg.width)
         self._masks = masks
@@ -312,12 +315,10 @@ class MaskStore:
         state — e.g. the JAX package's ``MaskStore`` — so both run on
         identical data.  ``state`` holds numpy arrays and plain values:
         ``masks`` (``resident_masks()``), ``meta``, ``chi`` (``chi_host()``),
-        ``chunk_lens`` (rows per CHI chunk, in order), ``epoch``, and
-        ``cfg`` (the CHIConfig fields as a dict)."""
-        if state.get("packed", False):
-            raise NotImplementedError(
-                "packed stores are ported with the bitpacked tier (a later "
-                "slice)")
+        ``chunk_lens`` (rows per CHI chunk, in order), ``epoch``, ``cfg``
+        (the CHIConfig fields as a dict) and ``packed`` (then ``masks``
+        holds the uint32 words)."""
+        packed = bool(state.get("packed", False))
         raw = dict(state["cfg"])
         if raw.get("thresholds") is not None:
             raw["thresholds"] = tuple(raw["thresholds"])
@@ -328,9 +329,11 @@ class MaskStore:
         chunks = np.split(chi, np.cumsum(lens)[:-1])
         return cls(CHIConfig(**raw),
                    np.array(state["meta"], dtype=MASK_META_DTYPE),
-                   tier="memory", masks=np.array(state["masks"], np.float32),
+                   tier="memory",
+                   masks=np.array(state["masks"],
+                                  np.uint32 if packed else np.float32),
                    chi_chunks=chunks, epoch=int(state.get("epoch", 0)),
-                   device=device)
+                   packed=packed, device=device)
 
     @classmethod
     def create_disk(cls, root: str, masks: np.ndarray, meta: np.ndarray,
@@ -872,8 +875,9 @@ class MaskStore:
 
     def device_masks(self):
         """:meth:`resident_masks` pinned on the store's device (a torch
-        tensor, cached) — the HBM-resident tier the device backend verifies
-        against.  Once materialized, mutations maintain it incrementally:
+        tensor, cached; packed words as their int32 bit view) — the
+        HBM-resident tier the device backend verifies against.  Once
+        materialized, mutations maintain it incrementally:
         appends copy only the new rows over, updates scatter the changed
         rows in place, deletes gather the survivors."""
         if self._device_masks is None:

@@ -38,6 +38,8 @@ SOURCES = {
     "cp_count": ("cp_count", "cp_count_multi"),
     "chi_build": ("chi_cell_hist",),
     "mask_agg": ("mask_agg_counts",),
+    "popcount": ("cp_count_packed", "cp_count_multi_packed",
+                 "mask_agg_counts_packed", "fused_bounds_verify"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -161,11 +163,12 @@ def require_cuda(t: torch.Tensor, what: str, dtypes=None) -> None:
         raise TypeError(f"{what} dtype {t.dtype} is not one of {dtypes}")
 
 
-def int32_rows(x, device, shape) -> torch.Tensor:
-    """ROI descriptors as a contiguous int32 tensor on ``device``."""
+def int32_rows(x, device, shape, what: str = "rois") -> torch.Tensor:
+    """ROI descriptors (or another small int operand, named ``what``) as a
+    contiguous int32 tensor on ``device``."""
     t = torch.as_tensor(x).to(device=device, dtype=torch.int32).contiguous()
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"rois must have shape {tuple(shape)}, "
+        raise ValueError(f"{what} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     return t
 

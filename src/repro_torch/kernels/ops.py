@@ -29,6 +29,8 @@ from . import ref
 from .chi_build import chi_cell_hist_cuda
 from .cp_count import cp_count_cuda, cp_count_multi_cuda
 from .mask_agg import mask_agg_counts_cuda
+from .popcount import (cp_count_multi_packed_cuda, cp_count_packed_cuda,
+                       fused_bounds_verify_cuda, mask_agg_counts_packed_cuda)
 
 _KERNEL_LAUNCHES = _REG.counter(
     "masksearch_kernel_launches_total",
@@ -84,7 +86,34 @@ mask_agg_counts = Kernel(
     "mask_agg_counts", ref.mask_agg_counts_ref, mask_agg_counts_cuda,
     "Fused MASK_AGG counts — (N,S,H,W), (N,4), t → (inter, union) int32.")
 
-KERNELS = (cp_count, cp_count_multi, chi_cell_hist, mask_agg_counts)
+
+# -- bitpacked binary-mask tier: (…, H, words) int32 bit views of the
+# store's uint32 words; lv/uv/t become float32 flags as in the JAX wrappers
+
+cp_count_packed = Kernel(
+    "cp_count_packed", ref.cp_count_packed_ref, cp_count_packed_cuda,
+    "Batched exact CP on packed words — (B,H,words) int32, (B,4), lv, uv "
+    "→ (B,) int32, equal to cp_count on the same binary masks.")
+cp_count_multi_packed = Kernel(
+    "cp_count_multi_packed", ref.cp_count_multi_packed_ref,
+    cp_count_multi_packed_cuda,
+    "Multi-query CP on packed words — (B,H,words), (Q,B,4), (Q,), (Q,) → "
+    "(Q,B) int32.")
+mask_agg_counts_packed = Kernel(
+    "mask_agg_counts_packed", ref.mask_agg_counts_packed_ref,
+    mask_agg_counts_packed_cuda,
+    "Fused MASK_AGG counts on packed words — (N,S,H,words), (N,4), t → "
+    "(inter, union) int32.")
+fused_bounds_verify = Kernel(
+    "fused_bounds_verify", ref.fused_bounds_verify_ref,
+    fused_bounds_verify_cuda,
+    "Bounds+verify megakernel — (B,H,words), (Q,B,4), (Q,), (Q,), decided "
+    "(Q,B), lb (Q,B) → (Q,B) int32: decided entries pass lb through, the "
+    "rest are counted.  One launch per verification batch.")
+
+KERNELS = (cp_count, cp_count_multi, chi_cell_hist, mask_agg_counts,
+           cp_count_packed, cp_count_multi_packed, mask_agg_counts_packed,
+           fused_bounds_verify)
 
 
 def reset_launches() -> None:

@@ -213,9 +213,7 @@ def test_from_reference_state_reproduces_the_jax_store():
                  cfg=dataclasses.asdict(j.cfg))
     t = tstore_mod.MaskStore.from_reference_state(state, device="cpu")
     _assert_same_store(j, t)
-    with pytest.raises(NotImplementedError):
-        tstore_mod.MaskStore.from_reference_state(dict(state, packed=True),
-                                                  device="cpu")
+    assert not t.packed      # packed states: tests/test_torch_packed.py
     with pytest.raises(ValueError):
         tstore_mod.MaskStore.from_reference_state(
             dict(state, chunk_lens=[1]), device="cpu")

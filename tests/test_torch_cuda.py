@@ -115,3 +115,108 @@ def test_store_and_queries_match_cpu(cuda):
                                  backend=backend)
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
+
+
+# -- bitpacked tier: the four popcount kernels ---------------------------------
+
+PACKED_SHAPES = [(3, 64, 33), (5, 96, 40), (2, 224, 224), (4, 32, 1100),
+                 (1, 7, 1), (6, 50, 70)]
+
+
+def _packed_inputs(shape, seed, device):
+    """int32 word views of random binary masks, and ROIs with the edge
+    cases: unclipped past W and past the last word, empty, negative starts,
+    columns on word edges."""
+    from repro_torch.core.packing import pack_masks
+    b, h, w = shape
+    rng = np.random.default_rng(seed)
+    words = pack_masks(rng.random(shape) < 0.4).view(np.int32)
+    r = np.sort(rng.integers(0, h + 1, (b, 2)), axis=1)
+    c = np.sort(rng.integers(0, w + 1, (b, 2)), axis=1)
+    rois = np.stack([r[:, 0], c[:, 0], r[:, 1], c[:, 1]], 1)
+    edges = [(0, 0, h, w + 31), (-3, -5, h + 2, 64), (2, 32, h, 64),
+             (1, 3, 1, 9), (0, 31, h, 33), (4, 9, 2, 30)]
+    rois[:min(b, len(edges))] = edges[:b]
+    return (torch.from_numpy(words).to(device),
+            torch.from_numpy(rois.astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_popcount_kernels_match_plain(cuda, shape):
+    m, rois = _packed_inputs(shape, 5, cuda)
+    b = shape[0]
+    before = ops.cp_count_packed.launches
+    ranges = ((0.5, 1.5), (-0.5, 0.5), (0.0, 1.0), (1.0, 1.5), (0.5, 0.5))
+    for lv, uv in ranges:
+        _eq(ops.cp_count_packed(m, rois, lv, uv),
+            ref.cp_count_packed_ref(m, rois, lv, uv))
+    assert ops.cp_count_packed.launches == before + len(ranges)
+    rois_q = torch.stack([rois, rois.flip(0), rois])
+    lvs = np.float32([0.5, -0.5, 0.0])
+    uvs = np.float32([1.5, 0.5, 3.4e38])
+    _eq(ops.cp_count_multi_packed(m, rois_q, lvs, uvs),
+        ref.cp_count_multi_packed_ref(m, rois_q, lvs, uvs))
+    rng = np.random.default_rng(6)
+    lb = rng.integers(0, 1000, (3, b)).astype(np.int32)
+    for decided in (rng.random((3, b)) < 0.5, np.ones((3, b), bool),
+                    np.zeros((3, b), bool)):
+        decided = decided.astype(np.int32)
+        _eq(ops.fused_bounds_verify(m, rois_q, lvs, uvs, decided, lb),
+            ref.fused_bounds_verify_ref(m, rois_q, lvs, uvs, decided, lb))
+
+
+@pytest.mark.parametrize("s", [1, 2, 3])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_mask_agg_packed_kernel_matches_plain(cuda, shape, s):
+    b, h, w = shape
+    m, rois = _packed_inputs((b * s, h, w), 7, cuda)
+    grp = m.reshape(b, s, h, -1).contiguous()
+    for t in (-0.5, 0.0, 0.5, 1.0, 1.5):
+        gi, gu = ops.mask_agg_counts_packed(grp, rois[:b], t)
+        wi, wu = ref.mask_agg_counts_packed_ref(grp, rois[:b], t)
+        _eq(gi, wi)
+        _eq(gu, wu)
+
+
+def test_popcount_kernels_refuse_other_word_types(cuda):
+    m, rois = _packed_inputs((2, 8, 40), 1, cuda)
+    with pytest.raises(TypeError):
+        ops.cp_count_packed(m.to(torch.float32), rois, 0.5, 1.5)
+    with pytest.raises(ValueError):
+        ops.cp_count_packed(m[:, :, :1], rois, 0.5, 1.5)   # not contiguous
+
+
+def test_packed_store_and_queries_match_cpu(cuda):
+    n, h, w = 64, 64, 72
+    rois = object_boxes(n, h, w, seed=1)
+    masks, _ = saliency_masks(n, h, w, seed=0, attacked_fraction=0.15,
+                              boxes=rois)
+    masks = (masks > 0.5).astype(np.float32)
+    meta = np.zeros(n, MASK_META_DTYPE)
+    meta["mask_id"] = np.arange(n)
+    meta["image_id"] = np.arange(n) // 2
+    meta["mask_type"] = np.arange(n) % 2 + 1
+    cfg = CHIConfig(grid=16, num_bins=16, height=h, width=w)
+    stores = {}
+    for d in ("cpu", cuda):
+        s = MaskStore.create_memory(masks[:32], meta[:32], cfg, packed=True,
+                                    device=d)
+        s.append(masks[32:], meta[32:])
+        stores[str(d)] = s
+    assert stores["cuda"].device_masks().dtype == torch.int32
+    np.testing.assert_array_equal(stores["cuda"].chi_host(),
+                                  stores["cpu"].chi_host())
+    for sql in ("SELECT mask_id FROM MasksDatabaseView WHERE CP(mask, roi, "
+                "(0.5, 1.5)) / AREA(roi) < 0.5;",
+                "SELECT mask_id FROM MasksDatabaseView ORDER BY CP(mask, "
+                "(3, 5, 61, 69), (0.5, 1.5)) DESC LIMIT 9;",
+                queries.SCENARIO3_IOU):
+        want, _ = queries.run(sql, stores["cpu"], provided_rois=rois)
+        for backend in ("host", "device"):
+            got, _ = queries.run(sql, stores["cuda"], provided_rois=rois,
+                                 backend=backend)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+        scan, _ = queries.run(sql, stores["cuda"], provided_rois=rois,
+                              use_index=False)
+        np.testing.assert_array_equal(scan[0], want[0])

@@ -267,22 +267,13 @@ def test_host_pair_bounds_match_jax(db, stat):
 
 
 def test_later_slices_raise_not_implemented(db):
-    """Pair plans, packed stores and EXPLAIN parse and compile up to the
-    point where a kernel of a later slice would run, then raise."""
+    """Pair plans and EXPLAIN parse and compile up to the point where a
+    kernel of a later slice would run, then raise."""
     _, t, rois = db
     with pytest.raises(NotImplementedError):
         tq.run(jq.SCENARIO6_DISCREPANCY, t)
     with pytest.raises(NotImplementedError):
         tq.run("EXPLAIN " + jq.SCENARIO2_TOPK, t)
-    binary = (np.arange(2 * 8 * 8).reshape(2, 8, 8) % 2).astype(np.float32)
-    meta = np.zeros(2, MASK_META_DTYPE)
-    meta["mask_id"] = [0, 1]
-    packed = TStore.create_memory(binary, meta, TCfg(grid=4, num_bins=4,
-                                                     height=8, width=8),
-                                  packed=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tq.run("SELECT mask_id FROM MasksDatabaseView WHERE "
-               "CP(mask, (1, 1, 7, 5), (0.5, 2.0)) > 3;", packed)
 
 
 def test_port_imports_no_jax_and_no_reference_package():
