@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py      # 16,384 float32 + 65,536 binary masks, 224x224
+    python3 chip_smoke.py      # 16,384 float32 + 65,536 binary masks and
+                               # 8,192 (saliency, attention) pairs, 224x224
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
-1. build the eight CUDA kernels from the four sources in
+1. build the ten CUDA kernels from the five sources in
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
    together);
 2. ingest 16,384 float32 saliency masks of 224x224 into a
@@ -21,8 +22,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ROI, lv == uv, pixels on bin edges, a ragged CHI grid, bf16 masks), with
    tolerance 0 (every output is an integer count), and time it beside the
    plain version and the card's bound;
-5. run a 64-mask store through the same queries on the card and on the
-   CPU (plain kernel versions) and require identical answers;
+5. run a 64-mask store (32 saliency/attention pairs) through the same
+   queries and four pair queries on the card and on the CPU (plain kernel
+   versions) and require identical answers;
 6. the packed path: 65,536 binary masks (``saliency_masks > 0.5``, made
    chunk by chunk in worker processes) ingested into a packed ``MaskStore``
    on the card, the packed filter, top-k and refine queries and
@@ -32,13 +34,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    same queries on a float store of the first chunk give the packed
    store's answers;
 7. the four popcount kernels against their plain versions (main-path
-   inputs and edge cases, tolerance 0) and timed beside their bounds.
+   inputs and edge cases, tolerance 0) and timed beside their bounds;
+8. the pair path: 8,192 images of (model saliency, human attention) masks
+   (benchmarks/bench_pair.py's recipe, made in worker processes) ingested
+   as a float store and, binarised, as a packed store; on each, the
+   discrepancy ranking (``SCENARIO6_DISCREPANCY``), the same on a
+   grid-misaligned ROI, a ``PAIR_DIFF`` filter and scenario 6's filtered
+   ranking on the device and host backends and as naive scans: device ==
+   host == naive scan, the pair kernel launched once per verification round
+   and naive scan, and a float store of the first binary chunk gives the
+   packed store's answers;
+9. the two pair kernels against their plain versions (main-path inputs and
+   edge cases, tolerance 0) and timed beside their bounds.
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
-indexed queries only; phase 6, naive scans included, since they carry
-``cp_count_packed``) and read just after it; every kernel of that path must
-have been launched there.  The script prints the build, the card, per-query
-times and stats, a ``{"kernels": [...]}`` line and, last, the result line
+indexed queries only; phases 6 and 8, naive scans included, since they
+carry ``cp_count_packed`` and the pair kernels' largest calls) and read
+just after it; every kernel of that path must have been launched there.
+The script prints the build, the card, per-query times and stats, a
+``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it; without either it exits non-zero.
 """
@@ -63,6 +77,13 @@ N_PACKED = 65536
 H = W = 224
 CHUNK = 2048
 PACKED_SEED = 7             # chunk c of the binary masks uses seed 7 + c
+N_PAIRS = 8192              # images of the pair phase, two masks each
+PAIR_JOB = 1024             # images a data worker makes per job
+# PAIR_DIFF thresholds of the pair phase, tuned at 224x224 on a 2,048-image
+# CPU store so that each answer is non-empty and leaves a verified residue
+# on the float and the binary leg
+PAIR_T_DIFF = 600
+PAIR_T_RANKED = 1000
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12      # H100 SXM float32 outside the tensor cores
 # 32-bit popcounts per clock per SM, compute capability 9.0 (CUDA C++
@@ -73,6 +94,7 @@ FLOAT_KERNELS = ("cp_count", "cp_count_multi", "chi_cell_hist",
                  "mask_agg_counts")
 PACKED_KERNELS = ("cp_count_packed", "cp_count_multi_packed",
                   "mask_agg_counts_packed", "fused_bounds_verify")
+PAIR_KERNELS = ("pair_counts", "pair_counts_packed")
 
 FILTER_SQL = ("SELECT mask_id FROM MasksDatabaseView "
               "WHERE CP(mask, roi, (0.8, 1.0)) / AREA(roi) < 0.02;")
@@ -86,12 +108,16 @@ KERNEL_INFO = {
                       "src/repro/kernels/chi_build.py:33"),
     "mask_agg_counts": ("src/repro_torch/kernels/csrc/mask_agg.cu",
                         "src/repro/kernels/mask_agg.py:25"),
+    "pair_counts": ("src/repro_torch/kernels/csrc/pair_count.cu",
+                    "src/repro/kernels/pair_count.py:29"),
     "cp_count_packed": ("src/repro_torch/kernels/csrc/popcount.cu",
                         "src/repro/kernels/popcount.py:108"),
     "cp_count_multi_packed": ("src/repro_torch/kernels/csrc/popcount.cu",
                               "src/repro/kernels/popcount.py:146"),
     "mask_agg_counts_packed": ("src/repro_torch/kernels/csrc/popcount.cu",
                                "src/repro/kernels/popcount.py:187"),
+    "pair_counts_packed": ("src/repro_torch/kernels/csrc/popcount.cu",
+                           "src/repro/kernels/popcount.py:236"),
     "fused_bounds_verify": ("src/repro_torch/kernels/csrc/popcount.cu",
                             "src/repro/kernels/popcount.py:290"),
 }
@@ -412,6 +438,61 @@ def packed_edge_cases(torch, ops, ref, pack_masks, dev):
     return n_cases
 
 
+def pair_sql(q, t_diff, t_ranked):
+    """The pair phase's four queries: the paper's discrepancy ranking, the
+    same on a grid-misaligned ROI (so the CHI leaves a residue), a
+    saliency-minus-attention filter over the object boxes and scenario 6's
+    filtered ranking."""
+    diff = "PAIR_DIFF(saliency, attention, 0.6, 0.6, roi)"
+    return [("pair_iou_topk", q.SCENARIO6_DISCREPANCY),
+            ("pair_iou_roi", "SELECT image_id FROM MasksDatabaseView ORDER BY "
+             "IOU(saliency, attention, 0.6, 0.6, (3, 5, 221, 223)) ASC "
+             "LIMIT 25;"),
+            ("pair_diff_filter", "SELECT image_id FROM MasksDatabaseView "
+             f"WHERE {diff} > {t_diff};"),
+            ("pair_filtered_topk", "SELECT image_id FROM MasksDatabaseView "
+             f"WHERE {diff} > {t_ranked} ORDER BY {diff} DESC LIMIT 25;")]
+
+
+def pair_job(job):
+    """Images ``[s, s + n)`` of the pair data, the recipe of
+    benchmarks/bench_pair.py ``_setup``: model saliency centred in the
+    object box, human attention ``0.9 model + 0.25 jitter`` where aligned
+    and an off-object gaze where misaligned.  Job ``j`` draws the model,
+    jitter and gaze from seeds 5, 6 and 7 + 1000 j.  Returns the float32
+    masks (2n, H, W), (saliency, attention) per image, and the binary leg of
+    ``_setup_binary`` (attention = the model where aligned; ``> 0.5``) as
+    bool.  Runs in a worker process."""
+    j, boxes, misaligned = job
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    from repro_torch.data.masks import saliency_masks
+    n = len(boxes)
+    model, _ = saliency_masks(n, H, W, seed=5 + 1000 * j, boxes=boxes,
+                              in_box_fraction=1.0)
+    jitter, _ = saliency_masks(n, H, W, seed=6 + 1000 * j, boxes=boxes,
+                               in_box_fraction=1.0)
+    off, _ = saliency_masks(n, H, W, seed=7 + 1000 * j, boxes=None)
+    mis = misaligned[:, None, None]
+    human = np.where(mis, off, np.clip(0.9 * model + 0.25 * jitter, 0.0,
+                                       1.0 - 1e-6))
+    masks = np.stack([model, human], axis=1).reshape(-1, H, W)
+    binary = np.stack([model > 0.5, np.where(mis, off, model) > 0.5],
+                      axis=1).reshape(-1, H, W)
+    return masks, binary
+
+
+def pair_data(n_images):
+    """Object boxes (seed 4), the 8% misaligned images
+    (``default_rng(3)``) and the data jobs of ``PAIR_JOB`` images each."""
+    from repro_torch.data.masks import object_boxes
+    boxes = object_boxes(n_images, H, W, seed=4)
+    misaligned = np.random.default_rng(3).random(n_images) < 0.08
+    jobs = [(j, boxes[s:s + PAIR_JOB], misaligned[s:s + PAIR_JOB])
+            for j, s in enumerate(range(0, n_images, PAIR_JOB))]
+    return boxes, misaligned, jobs
+
+
 def ingest(torch, MaskStore, cfg, dev, meta, chunks, ops, packed):
     """``create_memory`` on the first chunk, then ``append`` of the rest,
     each call timed to its end on the card.  Returns the store, the first
@@ -433,7 +514,7 @@ def ingest(torch, MaskStore, cfg, dev, meta, chunks, ops, packed):
         at += len(chunk)
         last = chunk
     print(f"{label}: create_memory({len(first)}) {t_create:.3f} s, "
-          f"{len(t_app)} x append({CHUNK}) {sum(t_app):.3f} s "
+          f"{len(t_app)} x append({len(last)}) {sum(t_app):.3f} s "
           f"(each {', '.join(f'{t:.3f}' for t in t_app)}), "
           f"total {t_create + sum(t_app):.3f} s; chi_cell_hist launches "
           f"{ops.launch_counts()['chi_cell_hist']}")
@@ -465,14 +546,20 @@ def run_queries(torch, tq, ops, store, sqls, provided, prefix):
     return results
 
 
-def naive_scans(torch, tq, store, sqls, provided):
+def naive_scans(torch, tq, ops, store, sqls, provided):
+    """Each query as a ``use_index=False`` scan: (answer, stats, seconds,
+    kernel launches) per query."""
     out = {}
     for qname, sql in sqls:
+        before = ops.launch_counts()
         t1 = time.perf_counter()
         res, stats = tq.run(sql, store, provided_rois=provided,
                             use_index=False)
         torch.cuda.synchronize()
-        out[qname] = (res, stats, time.perf_counter() - t1)
+        secs = time.perf_counter() - t1
+        after = ops.launch_counts()
+        out[qname] = (res, stats, secs, {k: after[k] - before[k]
+                                         for k in after})
     return out
 
 
@@ -489,12 +576,12 @@ def check_answers(results, naive, sqls, prefix):
                      f"{getattr(sd, f)}, host {getattr(sh, f)})")
         if isinstance(rd, tuple) and not np.all(np.isfinite(rd[1])):
             fail(f"{prefix}{qname}: non-finite scores")
-        rn, sn, secs = naive[qname]
+        rn, sn, secs, _ = naive[qname]
         if not same_answer(rd, rn):
             fail(f"{prefix}{qname}: indexed answer differs from the naive "
                  f"scan")
         print(f"{prefix}check {qname}: device == host == naive scan "
-              f"({sn.n_verified} masks scanned in {secs:.3f} s)")
+              f"({sn.n_verified} candidates scanned in {secs:.3f} s)")
 
 
 def kernel_entry(torch, ops, name, a, plain, launches, n_edge, bound):
@@ -593,7 +680,7 @@ def packed_phase(torch, dev, n):
           f"{store.chi_table.numel() * 4 / 1e9:.2f} GB of finest CHI on the "
           f"card")
     results = run_queries(torch, tq, ops, store, sqls, provided, "packed ")
-    naive = naive_scans(torch, tq, store, sqls, provided)
+    naive = naive_scans(torch, tq, ops, store, sqls, provided)
     pos = np.arange(0, n, max(n // 4096, 1))[:4096]
     specs = fused_specs(provided[pos])
     fused = {}
@@ -682,6 +769,187 @@ def packed_phase(torch, dev, n):
     return entries
 
 
+def pair_bound_of(torch, name, args, popc_per_s):
+    """(bound_ms, bound_by) of a pair kernel call: the ROI pixels (float)
+    or the words the ROI touches (packed) of both masks read once, 16 B
+    per ROI and 12 B of outputs per pair, over the HBM rate, against two
+    compares and three adds per pixel pair over the f32 rate, or three
+    popcounts per word pair over the card's popcount rate."""
+    a = args[0]
+    b = a.shape[0]
+    rois = torch.as_tensor(args[2]).to(a.device)
+    if name == "pair_counts":
+        px = int(roi_pixels(torch, rois, a.shape[1], a.shape[2]).sum())
+        nbytes = 2 * px * a.element_size() + b * 28
+        t_ops = 5 * px / PEAK_F32_OPS_S * 1e3
+    else:
+        words = int(touched_words(torch, rois, a.shape[1], a.shape[2]).sum())
+        nbytes = 2 * words * 4 + b * 28
+        t_ops = 3 * words / popc_per_s * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pair_edge_cases(torch, ops, ref, pack_masks, dev):
+    """Both pair kernels on the card against their plain versions, with
+    tolerance 0: W = 33, 40, 64, 224 and 1100 (16-byte and element paths,
+    tail bits), empty, unclipped and word-edge ROIs; for the float kernel
+    f32 and bf16 masks with pixels and thresholds on the CHI bin edges
+    k/16; for the packed one every (ta, tb) from {-0.5, 0, 0.5, 1, 1.5}."""
+    vals = (-0.5, 0.0, 0.5, 1.0, 1.5)
+    n_cases = dict.fromkeys(PAIR_KERNELS, 0)
+
+    def check(name, got, want):
+        n_cases[name] += 1
+        if max_abs_err(torch, got, want) != 0:
+            fail(f"{name} differs from its plain version on an edge case")
+
+    for si, (b, h, w) in enumerate([(6, 16, 33), (6, 16, 40), (4, 224, 224),
+                                    (5, 9, 64), (2, 5, 1100)]):
+        rng = np.random.default_rng(500 + si)
+        nw = (w + 31) // 32
+        r = np.sort(rng.integers(0, h + 1, (b, 2)), axis=1)
+        c = np.sort(rng.integers(0, w + 1, (b, 2)), axis=1)
+        rois = np.stack([r[:, 0], c[:, 0], r[:, 1], c[:, 1]], 1)
+        edges = [(0, 0, h, 64), (-3, -5, h + 2, 32 * nw + 9), (2, 3, 2, 20),
+                 (1, 32, h, 64), (0, 31, h, 33), (1, 0, h - 1, 32)]
+        rois[:min(b, len(edges))] = edges[:b]
+        rois = torch.as_tensor(rois.astype(np.int32), device=dev)
+        fa, fb = (rng.random((b, h, w), dtype=np.float32) for _ in range(2))
+        for f in (fa, fb):
+            pick = rng.random(f.shape) < 0.3
+            f[pick] = (rng.integers(0, 17, pick.sum()) / 16).astype(np.float32)
+        for dt in (torch.float32, torch.bfloat16):
+            ma = torch.as_tensor(fa, device=dev).to(dt)
+            mb = torch.as_tensor(fb, device=dev).to(dt)
+            for ta, tb in ((0.5, 0.625), (0.6, 0.6), (0.8, 0.5), (0.0, 1.0)):
+                check("pair_counts", ops.pair_counts(ma, mb, rois, ta, tb),
+                      ref.pair_counts_ref(ma, mb, rois, ta, tb))
+        pa, pb = (torch.as_tensor(pack_masks(rng.random((b, h, w)) < p).view(
+            np.int32), device=dev) for p in (0.4, 0.5))
+        for ta in vals:
+            for tb in vals:
+                check("pair_counts_packed",
+                      ops.pair_counts_packed(pa, pb, rois, ta, tb),
+                      ref.pair_counts_packed_ref(pa, pb, rois, ta, tb))
+    torch.cuda.synchronize()
+    return n_cases
+
+
+def pair_phase(torch, dev, n_images):
+    """Phases 8-9: the dual-mask pair operator on ``n_images`` images of
+    (saliency, attention) masks, a float and a binary leg; returns the two
+    pair kernels' ``kernels`` entries."""
+    from repro_torch.core import CHIConfig, MaskStore, build_chi_np
+    from repro_torch.core import queries as tq
+    from repro_torch.core.packing import pack_masks
+    from repro_torch.core.store import MASK_META_DTYPE
+    from repro_torch.kernels import ops, ref
+
+    cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
+    n = 2 * n_images
+    boxes, _, jobs = pair_data(n_images)
+    meta = make_meta(n, MASK_META_DTYPE)
+    provided = np.repeat(boxes, 2, axis=0)
+    sqls = pair_sql(tq, PAIR_T_DIFF, PAIR_T_RANKED)
+    workers = min(8, os.cpu_count() or 1)
+
+    # -- 8. the pair main path: ingest of both legs, indexed queries on both
+    # backends and naive scans (set-up first: the data, not timed as ingest)
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(pair_job, jobs))
+    per = CHUNK // PAIR_JOB        # data jobs per 2,048-image ingest chunk
+    chunks = {leg: [np.concatenate([p[i] for p in parts[s:s + per]])
+                    for s in range(0, len(parts), per)]
+              for i, leg in enumerate(("float", "packed"))}
+    del parts
+    print(f"pair data: {n_images} images x (saliency, attention), {n} float32 "
+          f"masks {H}x{W} and their binary leg in "
+          f"{time.perf_counter() - t0:.1f} s ({workers} worker processes)")
+    largest: dict = {}
+    undo = record_largest(ops, PAIR_KERNELS, largest)
+    ops.reset_launches()
+    legs = {}
+    for leg in ("float", "packed"):
+        store, first, last = ingest(torch, MaskStore, cfg, dev, meta,
+                                    chunks[leg], ops, packed=leg == "packed")
+        results = run_queries(torch, tq, ops, store, sqls, provided,
+                              f"pair {leg} ")
+        legs[leg] = (store, first, last, results,
+                     naive_scans(torch, tq, ops, store, sqls, provided))
+    pair_launches = ops.launch_counts()
+    undo()
+    del chunks
+    print(f"pair path launches: {json.dumps(pair_launches)}")
+    for k in PAIR_KERNELS + ("chi_cell_hist",):
+        if pair_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the pair path")
+
+    for leg, (store, first, last, results, naive) in legs.items():
+        at = len(store) - len(last)
+        if not np.array_equal(store.chi_host(np.arange(at, at + 64)),
+                              build_chi_np(last[:64].astype(np.float32),
+                                           cfg)):
+            fail(f"pair {leg} ingest: CHI differs from build_chi_np")
+        check_answers(results, naive, sqls, f"pair {leg} ")
+        # every query has one (ta, tb, roi) spec: one launch per round; a
+        # naive scan is one pass over all pairs, two for the filtered
+        # ranking (its predicate, then the ranking of the survivors)
+        kernel = "pair_counts_packed" if store.packed else "pair_counts"
+        rounds = 0
+        for qname, _ in sqls:
+            passes = 2 if qname == "pair_filtered_topk" else 1
+            if naive[qname][3][kernel] != passes:
+                fail(f"pair {leg} {qname} naive scan: {kernel} launched "
+                     f"{naive[qname][3][kernel]} times, not {passes}")
+            for be in ("device", "host"):
+                res, stats, launches = results[(qname, be)]
+                if launches.get(kernel, 0) != stats.n_rounds:
+                    fail(f"pair {leg} {qname} on {be}: {kernel} launched "
+                         f"{launches.get(kernel, 0)} times in "
+                         f"{stats.n_rounds} verification rounds")
+                rounds += stats.n_rounds
+                ids = res[0] if isinstance(res, tuple) else res
+                if len(ids) == 0 or stats.n_verified == 0:
+                    fail(f"pair {leg} {qname} on {be}: empty answer or "
+                         f"nothing verified")
+        scans = sum(naive[q][3][kernel] for q, _ in sqls)
+        if pair_launches[kernel] != rounds + scans:
+            fail(f"pair {leg}: {kernel} launched {pair_launches[kernel]} "
+                 f"times for {rounds} rounds and {scans} naive passes")
+        print(f"pair {leg} check: ingest CHI equals build_chi_np on a sample; "
+              f"{kernel} launched once per verification round ({rounds}) and "
+              f"naive pass ({scans}); every answer non-empty with a "
+              f"verified residue")
+
+    # the binary leg's first chunk as a packed and as a float store
+    first = legs["packed"][1]
+    fl = MaskStore.create_memory(first.astype(np.float32), meta[:len(first)],
+                                 cfg, device=dev)
+    pk = MaskStore.create_memory(first, meta[:len(first)], cfg, packed=True,
+                                 device=dev)
+    for qname, sql in sqls:
+        want, _ = tq.run(sql, fl, provided_rois=provided, backend="device")
+        got, _ = tq.run(sql, pk, provided_rois=provided, backend="device")
+        if not same_answer(got, want):
+            fail(f"pair packed vs float store, first chunk: {qname} differs")
+    print(f"pair check: the four queries on {len(first) // 2} images give the "
+          f"same ids and scores from a packed and a float store")
+    del legs, fl, pk
+
+    # -- 9. the pair kernels against their plain versions ------------------
+    n_edge = pair_edge_cases(torch, ops, ref, pack_masks, dev)
+    rate = card_popcount_rate(torch)
+    plain = {"pair_counts": ref.pair_counts_ref,
+             "pair_counts_packed": ref.pair_counts_packed_ref}
+    return [kernel_entry(
+        torch, ops, name, largest[name][1], plain[name], pair_launches[name],
+        n_edge[name], lambda name, a: pair_bound_of(torch, name, a, rate))
+        for name in PAIR_KERNELS]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -756,7 +1024,7 @@ def main() -> int:
           f"equal build_chi_np on 64-mask samples")
 
     # device == host, and both == the naive scan
-    naive = naive_scans(torch, tq, store, sql_set(tq), provided)
+    naive = naive_scans(torch, tq, ops, store, sql_set(tq), provided)
     check_answers(results, naive, sql_set(tq), "")
 
     # -- 4. kernels against their plain versions ----------------------------
@@ -782,21 +1050,36 @@ def main() -> int:
         stores[d] = s
     if not np.array_equal(stores["cuda"].chi_host(), stores["cpu"].chi_host()):
         fail("small store: CHI built on the card differs from the CPU build")
-    for qname, sql in sql_set(tq):
-        want, _ = tq.run(sql, stores["cpu"], provided_rois=sm_rois,
-                         backend="host")
-        for be in ("device", "host"):
-            got, _ = tq.run(sql, stores["cuda"], provided_rois=sm_rois,
-                            backend=be)
-            if not same_answer(got, want):
-                fail(f"small store {qname} on {be}: card differs from CPU")
-    print("small store: 64 masks 64x64, four queries identical on the card "
-          "(device and host backends) and on the CPU")
+    # its masks alternate types 1 and 2 per image: a pair store too, and
+    # binarised, a packed pair store
+    sm_sqls = sql_set(tq) + pair_sql(tq, 20, 40)
+    sm_bin = (sm_masks > 0.5).astype(np.float32)
+    for d in ("cuda", "cpu"):
+        stores["packed " + d] = MaskStore.create_memory(
+            sm_bin, sm_meta, sm_cfg, packed=True, device=d)
+    for kind, sqls in (("", sm_sqls), ("packed ", pair_sql(tq, 20, 40))):
+        for qname, sql in sqls:
+            want, _ = tq.run(sql, stores[kind + "cpu"],
+                             provided_rois=sm_rois, backend="host")
+            for be in ("device", "host"):
+                got, _ = tq.run(sql, stores[kind + "cuda"],
+                                provided_rois=sm_rois, backend=be)
+                if not same_answer(got, want):
+                    fail(f"small {kind}store {qname} on {be}: card differs "
+                         f"from CPU")
+    print(f"small store: 64 masks 64x64 (32 saliency/attention pairs), "
+          f"{len(sm_sqls)} queries (four pair queries among them), and the "
+          f"four pair queries on a packed store of the same masks binarised, "
+          f"identical on the card (device and host backends) and on the CPU")
     del store, masks, results, largest, stores
     torch.cuda.empty_cache()
 
     # -- 6-7. the packed path, then its kernels -----------------------------
     kernels += packed_phase(torch, dev, N_PACKED)
+    torch.cuda.empty_cache()
+
+    # -- 8-9. the pair operator, then its kernels ---------------------------
+    kernels += pair_phase(torch, dev, N_PAIRS)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

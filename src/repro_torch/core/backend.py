@@ -20,8 +20,12 @@ Four primitives cover every plan the IR can express:
 plus ``fused_counts`` — the service scheduler's cross-query
 ``cp_count_multi`` pass, run on whichever backend owns the store — and,
 for packed stores, ``fused_verify_counts``: the bounds+verify megakernel
-route, one launch per verification batch.  The dual-mask pair primitives
-raise ``NotImplementedError`` until their slice ports the kernels.
+route, one launch per verification batch.  Dual-mask (pair) plans add
+``fused_pair_counts``: Q ``(rois, ta, tb)`` descriptors over per-image
+mask pairs → inter / union / diff counts, one ``pair_counts`` (or
+``pair_counts_packed``) launch per descriptor; ``pair_verify_counts``
+groups a batch's pair terms by descriptor so IoU's inter and union share
+one launch.
 
 Packed stores (DESIGN.md §12) run the same primitives on the popcount
 kernels; their words reach torch as the int32 bit view of the store's
@@ -37,7 +41,9 @@ Two implementations:
 * :class:`DeviceBackend` — the store's mask bytes and CHI table resident on
                            the store's device; bounds *and* verification
                            run there (torch ops plus the CUDA kernels), so
-                           the filter phase leaves the host.
+                           the filter phase leaves the host — pair bounds
+                           included (both roles' CHI rows gathered and
+                           combined cell by cell on the device).
 
 Equivalence contract: both backends return identical ids/scores and
 identical ``n_verified`` accounting for any plan.  Bounds interval
@@ -56,6 +62,7 @@ from ..kernels import ops as kops
 from ..obs.metrics import REGISTRY as _REG
 from . import packing
 from .distributed import _bounds_from_corners, device_resolve, value_ks
+from .exprs import _threshold_ks, cell_counts_torch, pair_cell_bounds_torch
 
 F32_MAX = 3.4e38  # finite stand-in for +inf in float32 kernel compares
 
@@ -70,10 +77,6 @@ _BACKEND_SYNCS = _REG.counter(
     "masksearch_backend_syncs_total",
     "Epoch re-pins of resident backend state after store mutations",
     ("backend",))
-
-
-def _later(what: str):
-    return NotImplementedError(f"{what} is ported in a later slice")
 
 
 def spec_arrays(specs, dtype=np.float32):
@@ -203,15 +206,36 @@ class ExecBackend:
         over the bytes."""
         raise NotImplementedError
 
+    PAIR_STAT_ROW = {"inter": 0, "union": 1, "diff": 2}
+
     def fused_pair_counts(self, store, pos_a: np.ndarray, pos_b: np.ndarray,
                           specs) -> np.ndarray:
-        """Dual-mask pass (Q pair descriptors → (Q, 3, B) inter / union /
-        diff counts)."""
-        raise _later("the dual-mask pair_counts kernel")
+        """Dual-mask pass: Q ``(rois, ta, tb)`` descriptors over the
+        per-image mask pairs ``(pos_a[i], pos_b[i])`` → (Q, 3, B) counts —
+        rows indexed by :attr:`PAIR_STAT_ROW` (inter / union / diff=|A∖B|).
+        All three stats come from one kernel launch per descriptor."""
+        raise NotImplementedError
 
     def pair_verify_counts(self, pctx, batch: np.ndarray, terms) -> dict:
-        """Exact pair-term counts for one verification batch."""
-        raise _later("pair verification")
+        """Exact pair-term counts for one verification batch: pair term →
+        float64 array aligned with ``batch`` (candidate indices into
+        ``pctx``).  Terms sharing a (ta, tb, roi) pair spec — e.g. IoU's
+        intersection and union — are answered by a single kernel launch.
+        Shared by every backend; the physical pass is
+        :meth:`fused_pair_counts`."""
+        batch = np.asarray(batch)
+        spec_ix: dict = {}
+        specs: list = []
+        for t in terms:
+            key = (t.ta, t.tb, t.roi)
+            if key not in spec_ix:
+                spec_ix[key] = len(specs)
+                specs.append((pctx.pair_rois(t.roi, batch), t.ta, t.tb))
+        counts = self.fused_pair_counts(pctx.store, pctx.pos_a[batch],
+                                        pctx.pos_b[batch], specs)
+        return {t: np.asarray(counts[spec_ix[(t.ta, t.tb, t.roi)],
+                                     self.PAIR_STAT_ROW[t.stat]], np.float64)
+                for t in terms}
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +299,16 @@ class HostBackend(ExecBackend):
         rois_q, lvs, uvs = spec_arrays(specs, masks.dtype)
         return _host(kops.cp_count_multi(_to(masks, dev), _to(rois_q, dev),
                                          _to(lvs, dev), _to(uvs, dev)))
+
+    def fused_pair_counts(self, store, pos_a, pos_b, specs):
+        # One metered load of the *union* of both roles' rows — a mask
+        # shared by several pairs (or both roles) pays its bytes once.
+        pos_a, pos_b = np.asarray(pos_a), np.asarray(pos_b)
+        upos = np.unique(np.concatenate([pos_a, pos_b]))
+        loaded = _to(store.load(upos), _device_of(store))
+        a = loaded[_to(np.searchsorted(upos, pos_a), loaded.device)]
+        b = loaded[_to(np.searchsorted(upos, pos_b), loaded.device)]
+        return _pair_passes(a, b, specs, is_packed(store))
 
     def _fused_verify_batch(self, ctx, batch, pos, rois_q, lvs, uvs,
                             decided, lb):
@@ -340,6 +374,32 @@ def _device_fused_verify(packed, pos, rois_q, lvs, uvs, decided, lb):
     the bounds+verify megakernel — one launch for the whole batch."""
     return kops.fused_bounds_verify(packed.index_select(0, pos), rois_q,
                                     lvs, uvs, decided, lb)
+
+
+def _device_pair_cells(tables, pos_a, pos_b, ks, rois, rb, cb, stat):
+    """Pair-term cell combine with both role gathers, the per-cell
+    thresholded counts and the cell algebra all on the device — the pair
+    filter phase leaving the host like the CP leaf.  ``ks`` holds
+    [ka_in, ka_out, kb_in, kb_out] value-edge indices."""
+    tab_a = tables[pos_a]
+    tab_b = tables[pos_b]
+    return pair_cell_bounds_torch(
+        stat, cell_counts_torch(tab_a, ks[0]), cell_counts_torch(tab_a, ks[1]),
+        cell_counts_torch(tab_b, ks[2]), cell_counts_torch(tab_b, ks[3]),
+        rois, rb, cb)
+
+
+def _pair_passes(a, b, specs, packed: bool) -> np.ndarray:
+    """Q pair descriptors ``(rois, ta, tb)`` over the gathered role rows
+    ``a`` / ``b`` → (Q, 3, B) int64 counts, one kernel launch each.  The
+    float kernel compares in the mask dtype; the packed one takes flags
+    from float32-rounded thresholds (the wrappers do both)."""
+    kernel = kops.pair_counts_packed if packed else kops.pair_counts
+    out = np.empty((len(specs), 3, a.shape[0]), np.int64)
+    for qi, (rois, ta, tb) in enumerate(specs):
+        trio = kernel(a, b, _to(np.asarray(rois, np.int32), a.device), ta, tb)
+        out[qi] = _host(torch.stack(trio))
+    return out
 
 
 class _KthValueMixin:
@@ -446,7 +506,14 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
         return _host(lb).astype(np.float64), _host(ub).astype(np.float64)
 
     def _pair_cells(self, pctx, node):
-        raise _later("the device pair-bounds cell combine")
+        ka = _threshold_ks(self.cfg, node.ta)
+        kb = _threshold_ks(self.cfg, node.tb)
+        lb, ub = _device_pair_cells(
+            self._tables, _to(pctx.pos_a, self.device),
+            _to(pctx.pos_b, self.device), (ka[0], ka[1], kb[0], kb[1]),
+            _to(pctx.pair_rois(node.roi).astype(np.int32), self.device),
+            self._rb, self._cb, node.stat)
+        return _host(lb), _host(ub)
 
     def verify_counts(self, ctx, batch, terms):
         terms = list(terms)
@@ -500,6 +567,16 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
 
     def fused_counts(self, store, positions, specs):
         return self._multi_counts(positions, *spec_arrays(specs))
+
+    def fused_pair_counts(self, store, pos_a, pos_b, specs):
+        # Both roles are resident (the store's one mask tensor): gather each
+        # role once and answer every descriptor against the gathered batch
+        # — zero metered bytes, two gathers whatever Q is.
+        a = self._masks.index_select(
+            0, _to(np.asarray(pos_a, np.int64), self.device))
+        b = self._masks.index_select(
+            0, _to(np.asarray(pos_b, np.int64), self.device))
+        return _pair_passes(a, b, specs, self._packed)
 
 
 # ---------------------------------------------------------------------------

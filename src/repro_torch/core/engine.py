@@ -25,10 +25,9 @@ finished / result`` (DESIGN.md §6), so sessions resume any of them and the
 service scheduler fuses their verification batches without knowing which
 operator it is driving.  The runs themselves are backend-agnostic drivers:
 every physical operation (bounds, exact counts, the ranking frontier,
-MASK_AGG counts) goes through an :class:`repro_torch.core.backend.ExecBackend`
-— host NumPy or single-device resident HBM — selected per run
-(DESIGN.md §7).  The dual-mask runs exist so plans compile, and raise
-``NotImplementedError`` until the pair slice ports their kernels.
+MASK_AGG counts, pair counts) goes through an
+:class:`repro_torch.core.backend.ExecBackend` — host NumPy or
+single-device resident HBM — selected per run (DESIGN.md §7).
 
 All runs expose :class:`ExecStats` telling exactly how much I/O the index
 avoided — the quantity behind the paper's 100× claim.
@@ -917,7 +916,8 @@ class _PairRunMixin:
     All frontier machinery is inherited unchanged — a pair run is the same
     filter–verification drive over a :class:`PairEvalContext` whose
     candidates are per-image (role_a, role_b) mask pairs: bounds combine
-    the two roles' CHI passes (:func:`repro_torch.core.exprs.pair_stat_bounds`),
+    the two roles' CHI rows cell by cell
+    (:func:`repro_torch.core.exprs.pair_cell_bounds`),
     verification answers every pair term of the plan from one fused
     dual-mask kernel pass per batch (``ExecBackend.pair_verify_counts``),
     and results refer to **image ids**.  The pruning win is squared
@@ -925,15 +925,25 @@ class _PairRunMixin:
     *two* masks.
     """
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "dual-mask (pair) runs are ported with the pair_counts kernel "
-            "in a later slice")
+    @property
+    def roles(self) -> tuple:
+        """The (role_a, role_b) mask-type pair this run evaluates."""
+        return self.ctx.roles
+
+    def _check_pair_ctx(self) -> None:
+        if not isinstance(self.ctx, PairEvalContext):
+            raise ValueError(
+                "pair run compiled without pair terms — use the plain "
+                "FilterRun/TopKRun classes (or compile_plan) instead")
 
 
 class PairFilterRun(_PairRunMixin, FilterRun):
     """``SELECT image_id WHERE <pair predicate>`` — e.g. images whose
     saliency∖attention difference count exceeds a threshold."""
+
+    def __init__(self, store, expr_or_pred, *args, **kw):
+        super().__init__(store, expr_or_pred, *args, **kw)
+        self._check_pair_ctx()
 
 
 class PairTopKRun(_PairRunMixin, TopKRun):
@@ -941,11 +951,19 @@ class PairTopKRun(_PairRunMixin, TopKRun):
     saliency-vs-attention discrepancy ranking ``ORDER BY IOU(a, b, t, t)
     ASC LIMIT 25``."""
 
+    def __init__(self, store, expr, **kw):
+        super().__init__(store, expr, **kw)
+        self._check_pair_ctx()
+
 
 class PairFilteredTopKRun(_PairRunMixin, FilteredTopKRun):
     """Pair predicate + pair ranking in one run: the predicate truth and
     the exact score of one image resolve from a single load of its two
     masks."""
+
+    def __init__(self, store, pred, expr, **kw):
+        super().__init__(store, pred, expr, **kw)
+        self._check_pair_ctx()
 
 
 # ---------------------------------------------------------------------------

@@ -269,6 +269,56 @@ def pair_cell_bounds(cfg, stat: str, lo_a, hi_a, lo_b, hi_b,
             ub.sum(axis=(1, 2)).astype(np.float64))
 
 
+def cell_counts_torch(tables: torch.Tensor, k: int) -> torch.Tensor:
+    """Device mirror of :func:`_cell_counts` — the same corner-difference
+    math on a CHI row tensor (n, G+1, G+1, NB+1) → (n, G, G), in int32 (a
+    cell's count is at most H·W, so int32 is exact)."""
+    p = (tables[..., -1] - tables[..., k]).to(torch.int32)
+    return p[:, 1:, 1:] - p[:, :-1, 1:] - p[:, 1:, :-1] + p[:, :-1, :-1]
+
+
+def pair_cell_bounds_torch(stat: str, lo_a, hi_a, lo_b, hi_b,
+                           rois: torch.Tensor, row_bounds: torch.Tensor,
+                           col_bounds: torch.Tensor):
+    """Device mirror of :func:`pair_cell_bounds` — the identical per-cell
+    formulas in int32 on the tensors' device, summed over the grid in int64
+    and returned as float64, so the result equals the host path's bit for
+    bit.  The boundary tensors come in as operands, so one code path
+    serves every tier."""
+    rb = row_bounds.to(torch.int32)
+    cb = col_bounds.to(torch.int32)
+    rois = rois.to(torch.int32)
+    r0, c0 = rois[:, 0, None], rois[:, 1, None]
+    r1, c1 = rois[:, 2, None], rois[:, 3, None]
+    ov_r = (torch.minimum(r1, rb[None, 1:]) -
+            torch.maximum(r0, rb[None, :-1])).clamp(min=0)
+    ov_c = (torch.minimum(c1, cb[None, 1:]) -
+            torch.maximum(c0, cb[None, :-1])).clamp(min=0)
+    full_r = (rb[None, :-1] >= r0) & (rb[None, 1:] <= r1)
+    full_c = (cb[None, :-1] >= c0) & (cb[None, 1:] <= c1)
+    overlap = ov_r[:, :, None] * ov_c[:, None, :]
+    full = full_r[:, :, None] & full_c[:, None, :]
+    cell_area = ((rb[1:] - rb[:-1])[None, :, None] *
+                 (cb[1:] - cb[:-1])[None, None, :])
+    zero = torch.zeros((), dtype=torch.int32, device=rois.device)
+    if stat == "inter":
+        lb = torch.where(full, (lo_a + lo_b - cell_area).clamp(min=0), zero)
+        ub = torch.minimum(torch.minimum(hi_a, hi_b), overlap)
+    elif stat == "union":
+        lb = torch.where(full, torch.maximum(lo_a, lo_b), zero)
+        ub = torch.minimum(overlap, hi_a + hi_b)
+    elif stat == "diff":
+        lb = torch.where(full, (lo_a - hi_b).clamp(min=0), zero)
+        ub = torch.where(full,
+                         torch.minimum(torch.minimum(hi_a, overlap),
+                                       cell_area - lo_b),
+                         torch.minimum(hi_a, overlap))
+    else:
+        raise ValueError(f"unknown pair stat {stat!r}")
+    return (lb.sum(dim=(1, 2), dtype=torch.int64).to(torch.float64),
+            ub.sum(dim=(1, 2), dtype=torch.int64).to(torch.float64))
+
+
 @dataclasses.dataclass(frozen=True)
 class BinOp(Node):
     op: str
@@ -815,11 +865,12 @@ class PairEvalContext:
     mask) and applies to both roles, so intersection/union/difference are
     counted over one region per image.
 
-    Pair bounds combine both roles' CHI rows cell-by-cell: the host path
-    gathers the rows and runs :func:`pair_cell_bounds` in numpy.  The
-    device-side cell combine and pair verification (the dual-mask kernel
-    pass) are ported in a later slice; until then they raise
-    ``NotImplementedError``.
+    Pair bounds combine both roles' CHI rows cell by cell: the host path
+    gathers the rows and runs :func:`pair_cell_bounds` in numpy; the device
+    backend runs the same cell math on its resident CHI
+    (:func:`pair_cell_bounds_torch`).  Verification answers every pair term
+    of a batch from one dual-mask kernel pass per distinct
+    ``(ta, tb, roi)`` spec (``ExecBackend.pair_verify_counts``).
     """
 
     def __init__(self, store, pos_a: np.ndarray, pos_b: np.ndarray,
@@ -873,9 +924,11 @@ class PairEvalContext:
         """(lb, ub) float64 over all candidate pairs.  ``cp_leaf`` is part
         of the shared context signature but unused.  ``pair_leaf(pctx,
         term) -> (lb, ub)`` optionally overrides the PairTerm cell-combine
-        primitive (a backend's device-side cell math); the host path below
-        gathers both roles' CHI rows and combines them cell-by-cell in
-        numpy."""
+        primitive — the device backend runs the same cell math over its
+        resident CHI (:func:`pair_cell_bounds_torch`), so the pair filter
+        phase leaves the host while pruning stays bit-identical; the host
+        path below gathers both roles' CHI rows and combines them cell by
+        cell in numpy."""
         n = len(self.pos_a)
         if isinstance(node, Const):
             v = np.full(n, node.value)
@@ -915,11 +968,18 @@ class PairEvalContext:
         raise TypeError(f"node {node} not valid in a pair expression")
 
     def exact(self, node: Node, idx: np.ndarray) -> np.ndarray:
-        """Exact value for candidate indices ``idx`` — the dual-mask kernel
-        pass, which is ported in a later slice."""
-        raise NotImplementedError(
-            "pair verification (the pair_counts kernel) is ported in a "
-            "later slice")
+        """Exact value for candidate indices ``idx`` — every distinct pair
+        spec in the node is answered by one fused dual-mask kernel pass."""
+        idx = np.asarray(idx)
+        if len(idx) == 0:
+            return np.empty(0, np.float64)
+        terms = {t for t in node.cp_terms() if isinstance(t, PairTerm)}
+        backend = self.backend
+        if backend is None:
+            from .backend import host_backend
+            backend = host_backend()
+        counts = backend.pair_verify_counts(self, idx, terms)
+        return self._eval_tree(node, idx, lambda t, i: counts[t])
 
 
 def is_pair_expr(node: Node) -> bool:

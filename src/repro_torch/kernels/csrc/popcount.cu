@@ -1,11 +1,12 @@
 // Popcount kernels over the bitpacked binary-mask tier: exact CP counts,
-// Q-descriptor counts, the bounds+verify megakernel and MASK_AGG counts on
-// 1-bit-per-pixel words.
+// Q-descriptor counts, the bounds+verify megakernel, MASK_AGG counts and
+// dual-mask pair counts on 1-bit-per-pixel words.
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/popcount.py:
 //   _cp_popcount_kernel           -> cp_packed_kern       (cp_count_packed)
 //   _cp_multi_popcount_kernel     -> cp_multi_packed_kern (cp_count_multi_packed)
 //   _agg_popcount_kernel          -> agg_packed_kern      (mask_agg_counts_packed)
+//   _pair_popcount_kernel         -> pair_packed_kern     (pair_counts_packed)
 //   _fused_verify_popcount_kernel -> fused_verify_kern    (fused_bounds_verify)
 //
 // Masks are (B, H, nw) 32-bit words, bit i of word k = pixel column
@@ -35,9 +36,12 @@
 // is f1 * ones + f0 * (area - ones).  area is computed in closed form from
 // the ROI clipped to rows [0, H) and columns [0, 32 * nw) -- equal to the
 // popcount of the span masks, as in the JAX kernel, which counts the bits
-// past W for a ROI that was not clipped to W.  MASK_AGG thresholds with the
-// effective word (t < 1 ? w : 0) | (t < 0 ? ~w : 0); the complement's tail
-// bits are removed by the same span masks.
+// past W for a ROI that was not clipped to W.  MASK_AGG and the pair counts
+// threshold with the effective word (t < 1 ? w : 0) | (t < 0 ? ~w : 0); the
+// complement's tail bits are removed by the same span masks.  A pair reads
+// the same word of both masks (two loads per row step, four in flight) and
+// counts three popcounts: ea & eb, ea | eb and ea & ~eb (|A∖B|, role A
+// first).
 #include "common.cuh"
 
 constexpr int kWarps = 8;  // warps per block, one mask (or group) each
@@ -229,6 +233,54 @@ agg_packed_kern(const unsigned* __restrict__ words,  // (N, S, H, nw)
   }
 }
 
+__global__ void __launch_bounds__(kWarps * 32)
+pair_packed_kern(const unsigned* __restrict__ words_a,  // (B, H, nw)
+                 const unsigned* __restrict__ words_b,  // (B, H, nw)
+                 const int* __restrict__ rois,          // (B, 4)
+                 int fa1, int fa0, int fb1, int fb0, int B, int H, int nw,
+                 int* __restrict__ out) {               // (3, B)
+  const int p = warp_item();
+  if (p >= B) return;
+  const Roi r = clip_roi(rois + 4 * (size_t)p, H, nw);
+  const size_t base = (size_t)p * H * nw;
+  const unsigned keep_a = fa1 ? 0xffffffffu : 0u;  // (ta < 1 ? w : 0)
+  const unsigned flip_a = fa0 ? 0xffffffffu : 0u;  // (ta < 0 ? ~w : 0)
+  const unsigned keep_b = fb1 ? 0xffffffffu : 0u;
+  const unsigned flip_b = fb0 ? 0xffffffffu : 0u;
+  int ci = 0, cu = 0, cd = 0;
+  if (r.area() > 0) {
+    const Lane g = lane_of(r);
+    const size_t stride = (size_t)g.rps * nw;
+    for (int k = g.active ? g.k : g.kend; k < g.kend; k += g.lpr) {
+      const unsigned span = span_mask(r.c0, r.c1, k);
+      int row = r.r0 + g.rsub;
+      for (; row < r.r1; row += 2 * g.rps) {
+        const bool two = row + g.rps < r.r1;
+        const size_t off = base + (size_t)row * nw + k;
+        const unsigned a0 = __ldg(words_a + off), b0 = __ldg(words_b + off);
+        const unsigned a1 = two ? __ldg(words_a + off + stride) : 0u;
+        const unsigned b1 = two ? __ldg(words_b + off + stride) : 0u;
+        const unsigned s1 = two ? span : 0u;
+        const unsigned ea0 = (a0 & keep_a) | (~a0 & flip_a);
+        const unsigned eb0 = (b0 & keep_b) | (~b0 & flip_b);
+        const unsigned ea1 = (a1 & keep_a) | (~a1 & flip_a);
+        const unsigned eb1 = (b1 & keep_b) | (~b1 & flip_b);
+        ci += __popc(ea0 & eb0 & span) + __popc(ea1 & eb1 & s1);
+        cu += __popc((ea0 | eb0) & span) + __popc((ea1 | eb1) & s1);
+        cd += __popc(ea0 & ~eb0 & span) + __popc(ea1 & ~eb1 & s1);
+      }
+    }
+  }
+  ci = __reduce_add_sync(0xffffffffu, ci);
+  cu = __reduce_add_sync(0xffffffffu, cu);
+  cd = __reduce_add_sync(0xffffffffu, cd);
+  if ((threadIdx.x & 31) == 0) {
+    out[p] = ci;
+    out[(size_t)B + p] = cu;
+    out[2 * (size_t)B + p] = cd;
+  }
+}
+
 static inline unsigned blocks_for(int items) {
   return (unsigned)((items + kWarps - 1) / kWarps);
 }
@@ -272,5 +324,17 @@ extern "C" int agg_packed_launch(const void* words, const void* rois, int f1,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(words), static_cast<const int*>(rois), f1,
       f0, N, S, H, nw, static_cast<int*>(inter), static_cast<int*>(uni));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pair_packed_launch(const void* words_a, const void* words_b,
+                                  const void* rois, int fa1, int fa0, int fb1,
+                                  int fb0, int B, int H, int nw, void* out,
+                                  void* stream) {
+  pair_packed_kern<<<blocks_for(B), kWarps * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(words_a),
+      static_cast<const unsigned*>(words_b), static_cast<const int*>(rois),
+      fa1, fa0, fb1, fb0, B, H, nw, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

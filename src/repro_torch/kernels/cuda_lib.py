@@ -38,8 +38,10 @@ SOURCES = {
     "cp_count": ("cp_count", "cp_count_multi"),
     "chi_build": ("chi_cell_hist",),
     "mask_agg": ("mask_agg_counts",),
+    "pair_count": ("pair_counts",),
     "popcount": ("cp_count_packed", "cp_count_multi_packed",
-                 "mask_agg_counts_packed", "fused_bounds_verify"),
+                 "mask_agg_counts_packed", "pair_counts_packed",
+                 "fused_bounds_verify"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

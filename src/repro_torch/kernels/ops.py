@@ -29,8 +29,10 @@ from . import ref
 from .chi_build import chi_cell_hist_cuda
 from .cp_count import cp_count_cuda, cp_count_multi_cuda
 from .mask_agg import mask_agg_counts_cuda
+from .pair_count import pair_counts_cuda
 from .popcount import (cp_count_multi_packed_cuda, cp_count_packed_cuda,
-                       fused_bounds_verify_cuda, mask_agg_counts_packed_cuda)
+                       fused_bounds_verify_cuda, mask_agg_counts_packed_cuda,
+                       pair_counts_packed_cuda)
 
 _KERNEL_LAUNCHES = _REG.counter(
     "masksearch_kernel_launches_total",
@@ -85,6 +87,10 @@ chi_cell_hist = Kernel(
 mask_agg_counts = Kernel(
     "mask_agg_counts", ref.mask_agg_counts_ref, mask_agg_counts_cuda,
     "Fused MASK_AGG counts — (N,S,H,W), (N,4), t → (inter, union) int32.")
+pair_counts = Kernel(
+    "pair_counts", ref.pair_counts_ref, pair_counts_cuda,
+    "Dual-mask pair counts — (B,H,W) x 2, (B,4), ta, tb → (inter, union, "
+    "diff = |A∖B|) int32, one pass over both masks.")
 
 
 # -- bitpacked binary-mask tier: (…, H, words) int32 bit views of the
@@ -104,6 +110,11 @@ mask_agg_counts_packed = Kernel(
     mask_agg_counts_packed_cuda,
     "Fused MASK_AGG counts on packed words — (N,S,H,words), (N,4), t → "
     "(inter, union) int32.")
+pair_counts_packed = Kernel(
+    "pair_counts_packed", ref.pair_counts_packed_ref, pair_counts_packed_cuda,
+    "Dual-mask pair counts on packed words — (B,H,words) x 2, (B,4), ta, tb "
+    "→ (inter, union, diff) int32, equal to pair_counts on the same binary "
+    "masks.")
 fused_bounds_verify = Kernel(
     "fused_bounds_verify", ref.fused_bounds_verify_ref,
     fused_bounds_verify_cuda,
@@ -112,8 +123,8 @@ fused_bounds_verify = Kernel(
     "rest are counted.  One launch per verification batch.")
 
 KERNELS = (cp_count, cp_count_multi, chi_cell_hist, mask_agg_counts,
-           cp_count_packed, cp_count_multi_packed, mask_agg_counts_packed,
-           fused_bounds_verify)
+           pair_counts, cp_count_packed, cp_count_multi_packed,
+           mask_agg_counts_packed, pair_counts_packed, fused_bounds_verify)
 
 
 def reset_launches() -> None:

@@ -2,7 +2,7 @@
 behind ctypes.
 
 The packed tier's verification hot path.  Masks are ``(…, H, words)``
-int32 tensors, the bit view of the store's uint32 words.  Four launchers,
+int32 tensors, the bit view of the store's uint32 words.  Five launchers,
 each the port of a Pallas kernel in the JAX package's ``popcount.py``:
 
 * :func:`cp_count_packed_cuda` — ``cp_packed_kern`` (``_cp_popcount_kernel``):
@@ -13,7 +13,9 @@ each the port of a Pallas kernel in the JAX package's ``popcount.py``:
   (``_fused_verify_popcount_kernel``): Q descriptors, CHI-decided entries
   passed through uncounted — one launch per verification batch;
 * :func:`mask_agg_counts_packed_cuda` — ``agg_packed_kern``
-  (``_agg_popcount_kernel``): AND / OR over S members.
+  (``_agg_popcount_kernel``): AND / OR over S members;
+* :func:`pair_counts_packed_cuda` — ``pair_packed_kern``
+  (``_pair_popcount_kernel``): inter / union / diff of two masks per pair.
 
 The CP range and the threshold reach the kernels as integer flags,
 computed here from float32 values exactly as the JAX wrappers do
@@ -45,6 +47,8 @@ def _lib():
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P])
     cuda_lib.bind(lib.agg_packed_launch,
                   [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
+    cuda_lib.bind(lib.pair_packed_launch,
+                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P])
     return lib
 
 
@@ -133,3 +137,27 @@ def mask_agg_counts_packed_cuda(group_packed: torch.Tensor, rois, thresh):
         inter.data_ptr(), union.data_ptr(), cuda_lib.stream(dev))
     cuda_lib.check(rc, "mask_agg_counts_packed")
     return (inter, union), 1
+
+
+def pair_counts_packed_cuda(packed_a: torch.Tensor, packed_b: torch.Tensor,
+                            rois, ta, tb):
+    """(B, H, words) x 2, (B, 4), ta, tb → ((inter, union, diff) each (B,)
+    int32, launches); ``diff`` is |A∖B|."""
+    cuda_lib.require_cuda(packed_a, "packed_a", _WORDS)
+    cuda_lib.require_cuda(packed_b, "packed_b", _WORDS)
+    if packed_b.shape != packed_a.shape:
+        raise ValueError(f"packed_b shape {tuple(packed_b.shape)} differs "
+                         f"from packed_a {tuple(packed_a.shape)}")
+    b, h, nw = packed_a.shape
+    dev = packed_a.device
+    rois = cuda_lib.int32_rows(rois, dev, (b, 4))
+    fa1, fa0 = ref._thresh_flags(ta)
+    fb1, fb0 = ref._thresh_flags(tb)
+    out = torch.empty((3, b), dtype=torch.int32, device=dev)
+    if b == 0:
+        return tuple(out), 0
+    rc = _lib().pair_packed_launch(
+        packed_a.data_ptr(), packed_b.data_ptr(), rois.data_ptr(), fa1, fa0,
+        fb1, fb0, b, h, nw, out.data_ptr(), cuda_lib.stream(dev))
+    cuda_lib.check(rc, "pair_counts_packed")
+    return tuple(out), 1

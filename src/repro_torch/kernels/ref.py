@@ -100,6 +100,22 @@ def mask_agg_counts_ref(group_masks: torch.Tensor, rois, thresh):
             (union & inside).sum(dim=(1, 2), dtype=torch.int32))
 
 
+def pair_counts_ref(masks_a: torch.Tensor, masks_b: torch.Tensor, rois, ta,
+                    tb):
+    """(B, H, W) x 2, (B, 4), scalars → (inter, union, diff) each (B,)
+    int32: counts of A∩B, A∪B and A∖B inside each pair's ROI, with
+    A = ``masks_a > ta`` and B = ``masks_b > tb`` compared in the mask
+    dtype — the dual-mask verification primitive behind IoU and
+    discrepancy queries (one pass over both masks)."""
+    _, h, w = masks_a.shape
+    ba = masks_a > _as_dtype(ta, masks_a)
+    bb = masks_b > _as_dtype(tb, masks_b)
+    inside = _roi_mask(_rois(rois, masks_a), h, w)
+    return ((inside & ba & bb).sum(dim=(1, 2), dtype=torch.int32),
+            (inside & (ba | bb)).sum(dim=(1, 2), dtype=torch.int32),
+            (inside & ba & ~bb).sum(dim=(1, 2), dtype=torch.int32))
+
+
 # -- bitpacked binary-mask tier ----------------------------------------------
 #
 # Packed masks are (…, H, words) int32 tensors: the bit view of the store's
@@ -244,3 +260,20 @@ def fused_bounds_verify_ref(packed: torch.Tensor, rois, lvs, uvs, decided,
     decided = torch.as_tensor(decided).to(dev)
     lb = torch.as_tensor(lb).to(device=dev, dtype=torch.int32)
     return torch.where(decided != 0, lb, counts)
+
+
+def pair_counts_packed_ref(packed_a: torch.Tensor, packed_b: torch.Tensor,
+                           rois, ta, tb):
+    """(B, H, words) x 2 int32 bit views, (B, 4), ta, tb → (inter, union,
+    diff) each (B,) int32: set bits of ea & eb, ea | eb and ea & ~eb inside
+    each ROI, where ``ea``/``eb`` are the effective words of ``value > t``
+    (flags from float32-rounded ``ta``/``tb``), equal to
+    ``pair_counts_ref`` on the unpacked binary masks."""
+    _, h, nw = packed_a.shape
+    ea = _effective_word(_words(packed_a), *_thresh_flags(ta))
+    eb = _effective_word(_words(packed_b), *_thresh_flags(tb))
+    valid = _valid_words(_rois(rois, packed_a), h, nw)
+
+    def count(x):
+        return _popcount32(x & valid).sum(dim=(1, 2)).to(torch.int32)
+    return count(ea & eb), count(ea | eb), count(ea & ~eb)

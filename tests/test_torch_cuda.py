@@ -76,6 +76,30 @@ def test_mask_agg_kernel_matches_plain(cuda, shape, dtype):
     _eq(gu, wu)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + [(3, 16, 33), (2, 5, 1100)])
+def test_pair_kernel_matches_plain(cuda, shape, dtype):
+    a, rois = _inputs(shape, 8, cuda)
+    b, _ = _inputs(shape, 9, cuda)
+    # pixels on a threshold: bf16 0.80078125 is not above ta = 0.8 in bf16
+    a[:, ::2, :] = 0.80078125
+    b[:, :, ::3] = 0.5
+    a, b = a.to(dtype), b.to(dtype)
+    before = ops.pair_counts.launches
+    for ta, tb in ((0.8, 0.5), (0.5, 0.8), (0.3, 0.3), (-1.0, 2.0)):
+        for got, want in zip(ops.pair_counts(a, b, rois, ta, tb),
+                             ref.pair_counts_ref(a, b, rois, ta, tb)):
+            _eq(got, want)
+    assert ops.pair_counts.launches == before + 4
+    # a copy one element off 16-byte alignment takes the element path
+    buf = torch.empty(a.numel() + 1, dtype=dtype, device=cuda)
+    a1 = buf[1:].view(a.shape)
+    a1.copy_(a)
+    for got, want in zip(ops.pair_counts(a1, b, rois, 0.8, 0.5),
+                         ref.pair_counts_ref(a1, b, rois, 0.8, 0.5)):
+        _eq(got, want)
+
+
 @pytest.mark.parametrize("grid", [4, 7, 16])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_chi_kernel_matches_plain_with_bin_edge_values(cuda, shape, grid):
@@ -176,6 +200,21 @@ def test_mask_agg_packed_kernel_matches_plain(cuda, shape, s):
         wi, wu = ref.mask_agg_counts_packed_ref(grp, rois[:b], t)
         _eq(gi, wi)
         _eq(gu, wu)
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_pair_packed_kernel_matches_plain(cuda, shape):
+    a, rois = _packed_inputs(shape, 10, cuda)
+    b, _ = _packed_inputs(shape, 11, cuda)
+    before = ops.pair_counts_packed.launches
+    ts = (-0.5, 0.0, 0.5, 1.0, 1.5)
+    for ta in ts:
+        for tb in ts:
+            for got, want in zip(
+                    ops.pair_counts_packed(a, b, rois, ta, tb),
+                    ref.pair_counts_packed_ref(a, b, rois, ta, tb)):
+                _eq(got, want)
+    assert ops.pair_counts_packed.launches == before + len(ts) ** 2
 
 
 def test_popcount_kernels_refuse_other_word_types(cuda):

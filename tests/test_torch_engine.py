@@ -247,8 +247,7 @@ def test_parser_builds_the_same_plans(sql):
 @pytest.mark.parametrize("stat", ["inter", "union", "diff"])
 def test_host_pair_bounds_match_jax(db, stat):
     """The pair operator's host bounds (numpy cell combine over both
-    roles' CHI rows) are ported; only its verification waits for the pair
-    kernel."""
+    roles' CHI rows) equal the JAX package's."""
     from repro.core.exprs import PairEvalContext as JPair
     from repro.core.exprs import PairTerm as JTerm
     from repro_torch.core.exprs import PairEvalContext as TPair
@@ -266,12 +265,25 @@ def test_host_pair_bounds_match_jax(db, stat):
             np.testing.assert_array_equal(tb_[1], jb[1])
 
 
+@pytest.mark.parametrize("backend", ["host", "device"])
+def test_scenario6_pair_query_matches_jax(db, backend):
+    """The saliency-vs-attention discrepancy ranking runs end to end (the
+    store's masks alternate type 1 and 2 per image)."""
+    j, t, rois = db
+    got, gst = tq.run(jq.SCENARIO6_DISCREPANCY, t, provided_rois=rois,
+                      backend=backend)
+    want, wst = jq.run(jq.SCENARIO6_DISCREPANCY, j, provided_rois=rois,
+                       backend=backend)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    for f in STATS:
+        assert getattr(gst, f) == getattr(wst, f), f
+
+
 def test_later_slices_raise_not_implemented(db):
-    """Pair plans and EXPLAIN parse and compile up to the point where a
-    kernel of a later slice would run, then raise."""
+    """EXPLAIN parses and compiles up to the point where the explain
+    renderer of a later slice would run, then raises."""
     _, t, rois = db
-    with pytest.raises(NotImplementedError):
-        tq.run(jq.SCENARIO6_DISCREPANCY, t)
     with pytest.raises(NotImplementedError):
         tq.run("EXPLAIN " + jq.SCENARIO2_TOPK, t)
 
