@@ -19,9 +19,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the ``use_index=False`` naive scan;
 4. check each kernel against its plain PyTorch version on the card, on the
    exact inputs of its largest main-path call and on edge cases (empty
-   ROI, lv == uv, pixels on bin edges, a ragged CHI grid, bf16 masks), with
-   tolerance 0 (every output is an integer count), and time it beside the
-   plain version and the card's bound;
+   ROI, lv == uv, pixels on bin edges, a ragged CHI grid, binary masks,
+   bf16 masks, positions that repeat or are empty, Q in every register
+   bucket), with tolerance 0 (every output is an integer count), and time
+   it beside the plain version and the card's bound; ``cp_count_multi``
+   also as its verification step runs it (indexed reads of the resident
+   array) against the gather + kernel it replaced;
 5. run a 64-mask store (32 saliency/attention pairs) through the same
    queries and four pair queries on the card and on the CPU (plain kernel
    versions) and require identical answers;
@@ -198,6 +201,9 @@ def bound_of(torch, ref, name, args):
         nbytes = px * isz + b * 16 + b * 4
         ops = px * 4
     elif name == "cp_count_multi":
+        pos_bytes = 8 * len(args[4]) if len(args) > 4 and args[4] is not None \
+            else 0
+        x = gathered(args)[0]
         b, h, w = x.shape
         rois = torch.as_tensor(args[1]).to(x.device, torch.int32)
         union = torch.zeros((b, h, w), dtype=torch.bool, device=x.device)
@@ -205,7 +211,7 @@ def bound_of(torch, ref, name, args):
             union |= ref._roi_mask(rois[q], h, w)
         px = int(union.sum())
         q = rois.shape[0]
-        nbytes = px * isz + q * b * 16 + q * 8 + q * b * 4
+        nbytes = px * isz + q * b * 16 + q * 8 + q * b * 4 + pos_bytes
         ops = int(roi_pixels(torch, rois, h, w).sum()) * 4
     elif name == "chi_cell_hist":
         b, h, w = x.shape
@@ -266,6 +272,17 @@ def edge_cases(torch, ops, ref):
             uvs = torch.tensor([0.8, 0.5, 3.4e38])
             check("cp_count_multi", ops.cp_count_multi(m, rois_q, lvs, uvs),
                   ref.cp_count_multi_ref(m, rois_q, lvs, uvs))
+            # positions over the leading axis (repeated, unsorted, none),
+            # Q in every register bucket of the kernel and above the largest
+            for pos in ([b - 1, 0, b - 1, 0], list(range(b))[::-1], []):
+                p = torch.tensor(pos, dtype=torch.int64, device=dev)
+                for q in (1, 2, 5, 9):
+                    rq = torch.stack([rois, empty, rois.flip(0)] * 3)[:q][:, p]
+                    lq = torch.linspace(0.05, 0.6, q)
+                    uq = lq + 0.35
+                    check("cp_count_multi positions",
+                          ops.cp_count_multi(m, rq, lq, uq, p),
+                          ref.cp_count_multi_ref(m, rq, lq, uq, p))
             if b >= 2:
                 gm = m[: (b // 2) * 2].reshape(b // 2, 2, h, w).contiguous()
                 gr = rois[: b // 2]
@@ -282,6 +299,16 @@ def edge_cases(torch, ops, ref):
         for g in (4, 8, 16, 7):   # 7 and 16 are ragged for some shapes
             check("chi_cell_hist", ops.chi_cell_hist(m, edges, g),
                   ref.chi_cell_hist_ref(m, edges, g))
+        # other bin counts (the search pads 4 and 16 edges with +inf), and
+        # binary masks (every pixel in the first or the last bin)
+        for nb in (5, 17):
+            e2 = torch.arange(1, nb, dtype=torch.float32) / nb
+            check("chi_cell_hist nb", ops.chi_cell_hist(m, e2, 16),
+                  ref.chi_cell_hist_ref(m, e2, 16))
+        binary = (m > 0.5).float()
+        for g in (16, 7):
+            check("chi_cell_hist binary", ops.chi_cell_hist(binary, edges, g),
+                  ref.chi_cell_hist_ref(binary, edges, g))
     torch.cuda.synchronize()
     return n_cases
 
@@ -314,6 +341,24 @@ def binary_chunk(job):
     return m > 0.5
 
 
+def call_size(name, a):
+    """Elements a kernel call reads from: the batch, or for a
+    ``cp_count_multi`` call with positions (on the resident array)
+    len(positions) masks of it."""
+    if name == "cp_count_multi" and len(a) > 4 and a[4] is not None:
+        return len(a[4]) * a[0].shape[1] * a[0].shape[2]
+    return a[0].numel()
+
+
+def gathered(a):
+    """A ``cp_count_multi`` call's arguments with its positions resolved:
+    the gathered batch ``masks[positions]`` (what the plain version, the
+    bound and the kernel alone are measured on)."""
+    if len(a) > 4 and a[4] is not None:
+        return (a[0][a[4]],) + tuple(a[1:4])
+    return a
+
+
 def record_largest(ops, names, largest):
     """Wrap the CUDA launchers of kernels ``names`` so that each keeps the
     arguments of its largest call in ``largest``; returns the undo."""
@@ -323,7 +368,7 @@ def record_largest(ops, names, largest):
             continue
 
         def rec(*a, name=k.name, launch=k.cuda):
-            size = a[0].numel()
+            size = call_size(name, a)
             if size >= largest.get(name, (-1, None))[0]:
                 largest[name] = (size, a)
             return launch(*a)
@@ -582,6 +627,29 @@ def check_answers(results, naive, sqls, prefix):
                  f"scan")
         print(f"{prefix}check {qname}: device == host == naive scan "
               f"({sn.n_verified} candidates scanned in {secs:.3f} s)")
+
+
+def multi_main_path_step(torch, ops, ref, a):
+    """``cp_count_multi``'s largest main-path call as the step runs it: the
+    indexed kernel on the resident array, held against its plain version
+    (tolerance 0) and timed beside the gather + kernel on the gathered
+    batch, the step's route before positions.  Returns the gathered
+    call's arguments, on which the kernel alone is measured."""
+    if len(a) <= 4 or a[4] is None:
+        fail("the largest cp_count_multi call carried no positions")
+    err = max_abs_err(torch, ops.cp_count_multi(*a),
+                      ref.cp_count_multi_ref(*a))
+    if err != 0:
+        fail(f"indexed cp_count_multi differs from its plain version "
+             f"(max abs err {err})")
+    pos = a[4]
+    t_new = time_ms(torch, lambda: ops.cp_count_multi(*a))
+    t_old = time_ms(torch, lambda: ops.cp_count_multi(a[0][pos], *a[1:4]))
+    print(f"main-path step cp_count_multi: {len(pos)} of {a[0].shape[0]} "
+          f"resident masks, Q={a[1].shape[0]}, indexed equal; gather + "
+          f"kernel {t_old:.4f} ms, indexed kernel {t_new:.4f} ms "
+          f"({t_old / t_new:.2f}x)")
+    return gathered(a)
 
 
 def kernel_entry(torch, ops, name, a, plain, launches, n_edge, bound):
@@ -1029,6 +1097,8 @@ def main() -> int:
 
     # -- 4. kernels against their plain versions ----------------------------
     n_edge = edge_cases(torch, ops, ref)
+    largest["cp_count_multi"] = (0, multi_main_path_step(
+        torch, ops, ref, largest["cp_count_multi"][1]))
     plain = {"cp_count": ref.cp_count_ref,
              "cp_count_multi": ref.cp_count_multi_ref,
              "chi_cell_hist": ref.chi_cell_hist_ref,

@@ -296,9 +296,10 @@ class HostBackend(ExecBackend):
             rois_q, lvs, uvs = spec_arrays(specs)
             return _host(kops.cp_count_multi_packed(
                 _to(masks, dev), _to(rois_q, dev), lvs, uvs))
+        # lv/uv stay on the host: the wrapper rounds them to the mask dtype
         rois_q, lvs, uvs = spec_arrays(specs, masks.dtype)
         return _host(kops.cp_count_multi(_to(masks, dev), _to(rois_q, dev),
-                                         _to(lvs, dev), _to(uvs, dev)))
+                                         lvs, uvs))
 
     def fused_pair_counts(self, store, pos_a, pos_b, specs):
         # One metered load of the *union* of both roles' rows — a mask
@@ -337,9 +338,10 @@ def _device_cp_bounds(tables, pos, rois, rb, cb, ks):
 
 
 def _device_multi_counts(masks, pos, rois_q, lvs, uvs):
-    """Gather a verification batch from the resident mask array and answer
-    Q CP descriptors in one fused kernel pass."""
-    return kops.cp_count_multi(masks[pos], rois_q, lvs, uvs)
+    """Answer Q CP descriptors over the verification batch ``pos`` of the
+    resident mask array in one fused kernel pass, which reads the rows in
+    place (no gather); ``lvs``/``uvs`` stay host arrays."""
+    return kops.cp_count_multi(masks, rois_q, lvs, uvs, pos)
 
 
 def _device_kth_index(pes, definite, k: int) -> int:
@@ -531,9 +533,8 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
         if self._packed:
             return _host(_device_multi_counts_packed(self._masks, pos, rois_q,
                                                      lvs, uvs))
-        return _host(_device_multi_counts(
-            self._masks, pos, rois_q, _to(lvs, self.device),
-            _to(uvs, self.device)))
+        return _host(_device_multi_counts(self._masks, pos, rois_q, lvs,
+                                          uvs))
 
     def _fused_verify_batch(self, ctx, batch, pos, rois_q, lvs, uvs,
                             decided, lb):

@@ -5,11 +5,14 @@ pixels whose value lies in ``[lv, uv)`` inside the mask's ROI.
 :func:`cp_count_cuda` launches ``cp_count_kern`` (the port of the Pallas
 ``_cp_kernel``); :func:`cp_count_multi_cuda` launches
 ``cp_count_multi_kern`` (the port of ``_cp_multi_kernel``), which answers
-Q descriptors from one read of each mask.  Both return ``(out, launches)``
-so the dispatching wrapper in :mod:`.ops` counts only real launches.
+Q descriptors from one read of each mask — optionally the rows at
+``positions`` of the resident array, read in place.  Both return
+``(out, launches)`` so the dispatching wrapper in :mod:`.ops` counts only
+real launches.
 
 Thresholds are rounded to the mask dtype here, before the kernel sees
-them, exactly as the Pallas wrappers cast lv/uv to ``masks.dtype``.
+them, exactly as the Pallas wrappers cast lv/uv to ``masks.dtype`` — on
+the host, so they cost the device one pinned copy and nothing else.
 """
 
 from __future__ import annotations
@@ -21,13 +24,11 @@ import torch
 
 from . import cuda_lib
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-# Elements of one block's row strip: ~8 sixteen-byte loads per thread for
-# the streaming kernel, and a <= 32 KiB f32 shared tile for the multi one.
+# Elements of one block's row strip in the single-descriptor kernel: ~8
+# sixteen-byte loads per thread.
 _STRIP_VECS = 2048
-_TILE_FLOATS = 8192
-_MAX_SMEM_FLOATS = 12288          # 48 KiB of default dynamic shared memory
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,7 +37,7 @@ def _lib():
     cuda_lib.bind(lib.cp_count_launch,
                   [_P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P])
     cuda_lib.bind(lib.cp_count_multi_launch,
-                  [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P])
+                  [_P, _I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P])
     return lib
 
 
@@ -59,30 +60,51 @@ def cp_count_cuda(masks: torch.Tensor, rois, lv, uv):
     return out, 1
 
 
-def cp_count_multi_cuda(masks: torch.Tensor, rois, lvs, uvs):
-    """(B, H, W), (Q, B, 4), (Q,), (Q,) → ((Q, B) int32, launches)."""
-    cuda_lib.require_cuda(masks, "masks", cuda_lib.DTYPE_CODES)
-    b, h, w = masks.shape
-    dev = masks.device
-    lvs = torch.as_tensor(lvs).reshape(-1)
-    q = lvs.shape[0]
-    rois = cuda_lib.int32_rows(rois, dev, (q, b, 4))
-    # thresholds in the mask dtype, carried as their exact f32 values
-    lvs = lvs.to(dev).to(masks.dtype).float().contiguous()
-    uvs = torch.as_tensor(uvs).reshape(-1).to(dev).to(masks.dtype).float()
-    uvs = uvs.contiguous()
-    if uvs.shape[0] != q:
+def _host(x) -> torch.Tensor:
+    t = torch.as_tensor(x)
+    return t.cpu() if t.device.type != "cpu" else t
+
+
+def thresholds(lvs, uvs, dtype) -> torch.Tensor:
+    """(Q, 2) f32 host tensor of (lv, uv), each rounded to the mask dtype
+    exactly as the plain version rounds them (the exact f32 values the
+    kernel compares against).  Host arrays cost no device work; a CUDA
+    tensor is read back first."""
+    lvs = _host(lvs).reshape(-1)
+    uvs = _host(uvs).reshape(-1)
+    if lvs.shape != uvs.shape:
         raise ValueError("lvs and uvs must have the same length")
-    out = torch.zeros((q, b), dtype=torch.int32, device=dev)
+    return torch.stack([lvs.to(dtype).float(), uvs.to(dtype).float()], 1)
+
+
+def cp_count_multi_cuda(masks: torch.Tensor, rois, lvs, uvs, positions=None):
+    """(N, H, W), (Q, B, 4), (Q,), (Q,), positions (B,) int64 or None →
+    ((Q, B) int32, launches).  Mask ``b`` is ``masks[positions[b]]``, read
+    in place (no gather), or ``masks[b]`` without positions; positions must
+    lie in [0, N) (the kernel traps otherwise, as an index out of range
+    does)."""
+    cuda_lib.require_cuda(masks, "masks", cuda_lib.DTYPE_CODES)
+    n, h, w = masks.shape
+    dev = masks.device
+    thr = thresholds(lvs, uvs, masks.dtype)
+    q = thr.shape[0]
+    if positions is None:
+        b, pos_ptr = n, None
+    else:
+        positions = torch.as_tensor(positions).to(dev, torch.int64)
+        positions = positions.reshape(-1).contiguous()
+        b, pos_ptr = positions.shape[0], positions.data_ptr()
+    rois = cuda_lib.int32_rows(rois, dev, (q, b, 4))
     if q == 0 or b == 0 or h == 0 or w == 0:
-        return out, 0
-    if w > _MAX_SMEM_FLOATS:
-        raise ValueError(f"cp_count_multi takes rows of at most "
-                         f"{_MAX_SMEM_FLOATS} pixels, got {w}")
-    strip = max(1, min(h, _TILE_FLOATS // w))
+        return torch.zeros((q, b), dtype=torch.int32, device=dev), 0
+    out = torch.empty((q, b), dtype=torch.int32, device=dev)
+    # one pinned, non-blocking copy: a copy from pageable memory would wait
+    # for every launch queued before it
+    thr = thr.pin_memory().to(dev, non_blocking=True)
     rc = _lib().cp_count_multi_launch(
-        masks.data_ptr(), cuda_lib.DTYPE_CODES[masks.dtype], rois.data_ptr(),
-        lvs.data_ptr(), uvs.data_ptr(), q, b, h, w, strip,
-        cuda_lib.vec_ok(masks, w), out.data_ptr(), cuda_lib.stream(dev))
+        masks.data_ptr(), cuda_lib.DTYPE_CODES[masks.dtype], pos_ptr, n,
+        rois.data_ptr(), thr.data_ptr(), q, b, h, w,
+        cuda_lib.vec_ok(masks, w), out.data_ptr(),
+        cuda_lib.stream(dev))
     cuda_lib.check(rc, "cp_count_multi")
     return out, 1

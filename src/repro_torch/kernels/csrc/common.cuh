@@ -55,6 +55,26 @@ __device__ __forceinline__ void load_vec(const T* p, float* v) {
   Elem<T>::unpack(raw.w, v + 3 * PER_WORD);
 }
 
+// Which column chunks (or columns) and rows of a box a thread reads, when
+// the box's nk chunks of a row are spread over min(nk, blockDim.x) threads
+// and blockDim.x / min(nk, blockDim.x) rows go per step: chunks
+// first + col, first + col + lpr, ...; rows first + row, first + row + rps,
+// ...  A thread keeps its column chunk for every row it reads.
+struct Split {
+  int col, lpr, row, rps;
+  bool active;
+};
+
+__device__ __forceinline__ Split split_of(int nk) {
+  Split s;
+  s.lpr = min(nk, (int)blockDim.x);
+  s.rps = blockDim.x / s.lpr;
+  s.col = threadIdx.x % s.lpr;
+  s.row = threadIdx.x / s.lpr;
+  s.active = threadIdx.x < s.lpr * s.rps;
+  return s;
+}
+
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);

@@ -26,23 +26,6 @@
 // 0.80078125 is not above ta = 0.8, whose bf16 value is 0.80078125.
 #include "common.cuh"
 
-// Which column chunks and rows of the ROI this thread reads: chunks
-// k0 + col, k0 + col + lpr, ... below k1; rows r0 + row, r0 + row + rps, ...
-struct Split {
-  int col, lpr, row, rps;
-  bool active;
-};
-
-__device__ __forceinline__ Split split_of(int nk) {
-  Split s;
-  s.lpr = min(nk, (int)blockDim.x);
-  s.rps = blockDim.x / s.lpr;
-  s.col = threadIdx.x % s.lpr;
-  s.row = threadIdx.x / s.lpr;
-  s.active = threadIdx.x < s.lpr * s.rps;
-  return s;
-}
-
 struct Counts {
   int inter = 0, uni = 0, diff = 0;
   __device__ __forceinline__ void add(int ha, int hb) {

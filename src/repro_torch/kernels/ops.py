@@ -56,15 +56,15 @@ class Kernel:
         self._dispatches = _KERNEL_LAUNCHES.labels(kernel=name)
         self._seconds = _KERNEL_SECONDS.labels(kernel=name)
 
-    def __call__(self, x: torch.Tensor, *args):
+    def __call__(self, x: torch.Tensor, *args, **kwargs):
         t0 = time.perf_counter()
         try:
             if x.device.type == "cpu":
-                return self.plain(x, *args)
+                return self.plain(x, *args, **kwargs)
             if x.device.type != "cuda":
                 raise ValueError(f"{self.name}: no kernel for device "
                                  f"{x.device}")
-            out, n = self.cuda(x, *args)
+            out, n = self.cuda(x, *args, **kwargs)
             self.launches += n
             return out
         finally:
@@ -80,7 +80,9 @@ cp_count = Kernel(
     "Batched exact CP — (B,H,W), (B,4), lv, uv → (B,) int32.")
 cp_count_multi = Kernel(
     "cp_count_multi", ref.cp_count_multi_ref, cp_count_multi_cuda,
-    "Multi-query CP — (B,H,W), (Q,B,4), (Q,), (Q,) → (Q,B) int32.")
+    "Multi-query CP — (B,H,W), (Q,B,4), (Q,), (Q,) → (Q,B) int32; with "
+    "positions (B,) over an (N,H,W) array, the batch masks[positions], read "
+    "in place on the card.")
 chi_cell_hist = Kernel(
     "chi_cell_hist", ref.chi_cell_hist_ref, chi_cell_hist_cuda,
     "CHI ingest histograms — (B,H,W), (NB-1,), grid → (B,G,G,NB) int32.")

@@ -42,9 +42,15 @@ def cp_count_ref(masks: torch.Tensor, rois, lv, uv) -> torch.Tensor:
     return (inside & in_range).sum(dim=(1, 2), dtype=torch.int32)
 
 
-def cp_count_multi_ref(masks: torch.Tensor, rois, lvs, uvs) -> torch.Tensor:
+def cp_count_multi_ref(masks: torch.Tensor, rois, lvs, uvs,
+                       positions=None) -> torch.Tensor:
     """(B, H, W), (Q, B, 4), (Q,), (Q,) → (Q, B) int32 — the multi-query
-    CP pass (one read of the mask bytes answers Q descriptors)."""
+    CP pass (one read of the mask bytes answers Q descriptors).  With
+    ``positions`` (B,), the batch is ``masks[positions]`` of an (N, H, W)
+    array."""
+    if positions is not None:
+        masks = masks[torch.as_tensor(positions, dtype=torch.int64).reshape(
+            -1).to(masks.device)]
     rois = _rois(rois, masks)
     lvs = torch.as_tensor(lvs).reshape(-1)
     uvs = torch.as_tensor(uvs).reshape(-1)

@@ -114,6 +114,102 @@ def test_chi_kernel_matches_plain_with_bin_edge_values(cuda, shape, grid):
         ref.chi_cell_hist_ref(m, edges, grid))
 
 
+def _multi_rois(rng, q, b, h, w):
+    """Random ROIs with the edge cases: columns that start and end inside
+    a 16-byte chunk, an empty ROI, one past the mask's edges."""
+    r = np.sort(rng.integers(-2, h + 3, (q, b, 2)), axis=2)
+    c = np.sort(rng.integers(-2, w + 3, (q, b, 2)), axis=2)
+    rois = np.stack([r[..., 0], c[..., 0], r[..., 1], c[..., 1]], -1)
+    if b:
+        rois[0, 0] = [1, 3, h - 1, w - 3]
+        rois[-1, -1] = [4, 5, 4, 9]
+    return torch.from_numpy(rois.astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q", [1, 2, 3, 4, 5, 8, 9, 17])
+def test_cp_multi_kernel_buckets_and_positions(cuda, q, dtype):
+    """Q in every register bucket and above the largest; positions that
+    are absent, unsorted, repeated and empty; 16-byte and element paths
+    (W = 33, 70, and a base one element off alignment)."""
+    rng = np.random.default_rng(40 + q)
+    for n, h, w in ((7, 40, 64), (6, 33, 70), (5, 9, 33), (4, 224, 224)):
+        m = torch.from_numpy(rng.random((n, h, w), dtype=np.float32))
+        m[:, ::3, ::2] = 0.80078125
+        m = m.to(cuda).to(dtype)
+        lvs = np.sort(rng.random(q)).astype(np.float32)
+        lvs[0] = 0.802
+        uvs = (lvs + 0.5).astype(np.float32)
+        uvs[-1] = 3.4e38
+        for pos in (None, [n - 1, 0, 2, 1], [2, 2, 0, 2, n - 1, 0], []):
+            b = n if pos is None else len(pos)
+            rois = _multi_rois(rng, q, b, h, w).to(cuda)
+            p = None if pos is None else torch.tensor(pos, device=cuda)
+            before = ops.cp_count_multi.launches
+            _eq(ops.cp_count_multi(m, rois, lvs, uvs, p),
+                ref.cp_count_multi_ref(m, rois, lvs, uvs, p))
+            assert ops.cp_count_multi.launches == before + (b > 0)
+        buf = torch.empty(m.numel() + 1, dtype=dtype, device=cuda)
+        m1 = buf[1:].view(m.shape)
+        m1.copy_(m)
+        p = torch.tensor([n - 1, 0, 0], device=cuda)
+        rois = _multi_rois(rng, q, 3, h, w).to(cuda)
+        _eq(ops.cp_count_multi(m1, rois, lvs, uvs, p),
+            ref.cp_count_multi_ref(m1, rois, lvs, uvs, p))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cp_multi_kernel_large_batch_writes_every_entry(cuda, dtype):
+    """A batch that fills the card, 1,500 positions over 300 resident
+    masks: one block per mask writes each (q, b) once into an output that
+    is never zeroed."""
+    rng = np.random.default_rng(7)
+    n, h, w, b = 300, 24, 40, 1500
+    m = torch.from_numpy(rng.random((n, h, w), dtype=np.float32))
+    m = m.to(cuda).to(dtype)
+    pos = torch.from_numpy(rng.integers(0, n, b)).to(cuda)
+    for q in (1, 3, 9):
+        rois = _multi_rois(rng, q, b, h, w).to(cuda)
+        lvs = np.linspace(0.0, 0.6, q).astype(np.float32)
+        uvs = (lvs + 0.3).astype(np.float32)
+        _eq(ops.cp_count_multi(m, rois, lvs, uvs, pos),
+            ref.cp_count_multi_ref(m, rois, lvs, uvs, pos))
+        _eq(ops.cp_count_multi(m[pos.cpu()].contiguous(), rois, lvs, uvs),
+            ref.cp_count_multi_ref(m, rois, lvs, uvs, pos))
+
+
+@pytest.mark.parametrize("nb", [1, 2, 5, 16, 17])
+@pytest.mark.parametrize("shape", [(600, 20, 36), (600, 18, 70),
+                                   (3, 33, 64), (2, 5, 9)])
+def test_chi_kernel_bins_bands_and_widths(cuda, shape, nb):
+    """Whole-mask blocks (a batch that fills the card) and banded ones,
+    widths that are not a multiple of 4, one-bin and binary masks, pixels
+    on the edges, NaN and +-inf, ragged grids."""
+    rng = np.random.default_rng(nb)
+    m = rng.random(shape, dtype=np.float32)
+    pick = rng.random(shape) < 0.3
+    m[pick] = (rng.integers(0, nb + 1, pick.sum()) / nb).astype(np.float32)
+    m.reshape(-1)[:5] = [np.nan, np.inf, -np.inf, 1.0, -0.25]
+    edges = torch.arange(1, nb, dtype=torch.float32) / nb
+    for x in (m, (m > 0.5).astype(np.float32), np.full(shape, 0.3, np.float32)):
+        t = torch.from_numpy(x).to(cuda)
+        for grid in (16, 7, 1):
+            _eq(ops.chi_cell_hist(t, edges, grid),
+                ref.chi_cell_hist_ref(t, edges, grid))
+    buf = torch.empty(m.size + 1, device=cuda)
+    t1 = buf[1:].view(shape)
+    t1.copy_(torch.from_numpy(m))
+    _eq(ops.chi_cell_hist(t1, edges, 16), ref.chi_cell_hist_ref(t1, edges, 16))
+
+
+def test_chi_kernel_refuses_unsorted_edges(cuda):
+    m = torch.zeros((2, 8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        ops.chi_cell_hist(m, torch.tensor([0.5, 0.25]), 4)
+    with pytest.raises(ValueError):
+        ops.chi_cell_hist(m, torch.tensor([0.25, float("nan")]), 4)
+
+
 def test_store_and_queries_match_cpu(cuda):
     n, h, w = 64, 64, 64
     rois = object_boxes(n, h, w, seed=1)

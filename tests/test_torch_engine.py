@@ -197,6 +197,33 @@ def test_verify_counts_identical_across_backends(db):
         np.testing.assert_array_equal(got[term], want[term])
 
 
+@pytest.mark.parametrize("i", [0, 1, 8])
+def test_device_verification_reads_rows_in_place_with_jax_stats(
+        db, i, monkeypatch):
+    """The device backend hands cp_count_multi the resident (N, H, W)
+    array and each round's positions (no gather); ids, scores and
+    ExecStats stay the JAX package's."""
+    from repro_torch.kernels import ops as kops
+    j, t, rois = db
+    calls = []
+    real = kops.cp_count_multi.plain
+
+    def spy(masks, rois_q, lvs, uvs, positions=None):
+        calls.append((tuple(masks.shape), positions is not None,
+                      tuple(rois_q.shape)))
+        return real(masks, rois_q, lvs, uvs, positions)
+
+    monkeypatch.setattr(kops.cp_count_multi, "plain", spy)
+    want = jq.run(MORE[i], j, provided_rois=rois, backend="device",
+                  verify_batch=5)
+    got = tq.run(MORE[i], t, provided_rois=rois, backend="device",
+                 verify_batch=5)
+    _assert_same(got, want, f"{i}/device")
+    assert calls and got[1].n_rounds == len(calls)
+    for shape, indexed, (_, b, _) in calls:
+        assert shape == (N, H, W) and indexed and 1 <= b <= 5
+
+
 def test_fused_counts_identical_across_backends_and_jax(db):
     """The scheduler's cross-query cp_count_multi pass, on both backends."""
     j, t, rois = db

@@ -12,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.chi_build import chi_cell_hist_pallas
 from repro.kernels.cp_count import cp_count_multi_pallas, cp_count_pallas
 from repro.kernels.mask_agg import mask_agg_counts_pallas
 from repro_torch.kernels import cuda_lib, ops, ref
+from repro_torch.kernels.cp_count import thresholds
 
 SHAPES = [(3, 64, 64), (2, 128, 256), (5, 96, 160), (1, 256, 256), (4, 32, 512)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -110,6 +112,95 @@ def test_cp_count_multi_matches_pallas(dtype):
     got = ops.cp_count_multi(tm, torch.from_numpy(rois), lvs, uvs)
     _eq(got, cp_count_multi_pallas(jm, jnp.asarray(rois), jnp.asarray(lvs),
                                    jnp.asarray(uvs), interpret=True))
+
+
+POSITIONS = {"unsorted": [4, 0, 2, 5, 1], "repeated": [3, 3, 0, 5, 3, 0, 0],
+             "empty": []}
+
+
+@pytest.mark.parametrize("kind", list(POSITIONS))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cp_count_multi_positions_match_jax_on_gathered_batch(dtype, kind):
+    """Indexed reads: ``positions`` over the leading axis answer exactly
+    what the JAX package answers on the gathered batch ``masks[pos]``."""
+    n, h, w = 6, 40, 52
+    jm, tm = _pair(_random((n, h, w), seed=31), dtype)
+    pos = np.asarray(POSITIONS[kind], np.int64)
+    rois = np.stack([_random_rois(len(pos), h, w, seed=32 + i)
+                     for i in range(3)])
+    rois[1, :] = [2, 3, h, 45]       # columns start and end inside a chunk
+    lvs = np.array([0.25, 0.802, 0.1], np.float32)
+    uvs = np.array([0.8, 1.0, 3.4e38], np.float32)
+    got = ops.cp_count_multi(tm, torch.from_numpy(rois), lvs, uvs,
+                             torch.from_numpy(pos))
+    assert got.shape == (3, len(pos)) and got.dtype == torch.int32
+    jdt = DTYPES[dtype][0]
+    want = jops.cp_count_multi(jm[jnp.asarray(pos)], jnp.asarray(rois),
+                               jnp.asarray(lvs, jdt), jnp.asarray(uvs, jdt))
+    _eq(got, want)
+    _eq(ops.cp_count_multi(tm, rois, lvs, uvs, positions=pos.tolist()), want)
+    if len(pos):
+        _eq(got, cp_count_multi_pallas(
+            jm[jnp.asarray(pos)], jnp.asarray(rois), jnp.asarray(lvs),
+            jnp.asarray(uvs), interpret=True))
+
+
+@pytest.mark.parametrize("q", [1, 2, 4, 5, 8, 9, 17])
+def test_cp_count_multi_positions_every_descriptor_count(q):
+    """Q in each of the kernel's register buckets (1, 2, 4, 8) and above
+    the largest, through positions, against the JAX reference."""
+    n, h, w = 5, 24, 33
+    m = _random((n, h, w), seed=40 + q)
+    pos = np.array([4, 1, 1, 0, 3, 2, 4], np.int64)
+    rois = np.stack([_random_rois(len(pos), h, w, seed=50 + i)
+                     for i in range(q)])
+    bounds = np.sort(np.random.default_rng(q).random((q, 2)),
+                     axis=1).astype(np.float32)
+    got = ops.cp_count_multi(torch.from_numpy(m), torch.from_numpy(rois),
+                             bounds[:, 0], bounds[:, 1], torch.from_numpy(pos))
+    _eq(got, jref.cp_count_multi_ref(jnp.asarray(m[pos]), jnp.asarray(rois),
+                                     jnp.asarray(bounds[:, 0]),
+                                     jnp.asarray(bounds[:, 1])))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cp_count_multi_thresholds_round_like_the_plain_version(dtype):
+    """The CUDA wrapper rounds lv/uv to the mask dtype on the host; the
+    values are the plain version's (and the Pallas wrapper's casts)."""
+    tdt = DTYPES[dtype][1]
+    lvs = [0.802, 0.7, 0.1, -0.3]
+    uvs = np.array([1.0, 0.80078125, 3.4e38, 0.5], np.float32)
+    thr = thresholds(lvs, torch.from_numpy(uvs), tdt)
+    assert thr.dtype == torch.float32 and thr.shape == (4, 2)
+    assert thr.device.type == "cpu"
+    _eq(thr[:, 0], torch.as_tensor(lvs).to(tdt).float())
+    _eq(thr[:, 1], torch.from_numpy(uvs).to(tdt).float())
+    _eq(thr[:, 0], np.asarray(jnp.asarray(np.float32(lvs)).astype(
+        DTYPES[dtype][0]).astype(jnp.float32)))
+    with pytest.raises(ValueError):
+        thresholds([0.1, 0.2], [0.5], tdt)
+
+
+@pytest.mark.parametrize("shape,grid", [((2, 14, 42), 7), ((3, 16, 36), 4),
+                                        ((1, 30, 90), 15)])
+@pytest.mark.parametrize("kind", ["binary", "one_bin", "edges"])
+def test_chi_cell_hist_odd_widths_and_few_bins_match_jax(shape, grid, kind):
+    """Rows whose width is not a multiple of 4 (the kernel's element path)
+    and masks whose pixels fall in one or two bins, against the JAX
+    reference and its Pallas kernel."""
+    m = _random(shape, seed=60)
+    if kind == "binary":
+        m = (m > 0.5).astype(np.float32)
+    elif kind == "one_bin":
+        m = np.full(shape, 0.40625, np.float32)
+    else:
+        m = (np.floor(m * 17) / 16).astype(np.float32)   # on the edges
+    edges = (np.arange(1, 16) / 16).astype(np.float32)
+    got = ops.chi_cell_hist(torch.from_numpy(m), torch.from_numpy(edges),
+                            grid)
+    _eq(got, jref.chi_cell_hist_ref(jnp.asarray(m), jnp.asarray(edges), grid))
+    _eq(got, chi_cell_hist_pallas(jnp.asarray(m), jnp.asarray(edges), grid,
+                                  interpret=True))
 
 
 @pytest.mark.parametrize("shape,grid", [((2, 64, 64), 8), ((3, 128, 256), 16),
