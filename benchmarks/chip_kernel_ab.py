@@ -1,20 +1,37 @@
 #!/usr/bin/env python3
-"""A/B timings of the CHI and multi-descriptor CP kernels on one GPU.
+"""A/B timings of the CHI, multi-descriptor CP, bounds+verify and packed
+pair kernels on one GPU.
 
-    python3 benchmarks/chip_kernel_ab.py
+    python3 benchmarks/chip_kernel_ab.py [--popcount]
 
-Each variant is the shipped source of ``csrc/chi_build.cu`` or
-``csrc/cp_count.cu`` with one design choice undone by a text edit, built
-with the package's ``nvcc`` flags into ``kernels/_build/ab/`` and called
-through the shipped launcher on the inputs of the main path: 2,048
-saliency masks of 224x224 (an ingest chunk) and their binarisation for the
-CHI kernel, one descriptor over 3,861 object-box ROIs of 4,096 resident
-masks for the CP kernel.  A small batch of each (64 masks; 170 ROIs) times
-the block-per-mask grid against the banded CHI grid the wrapper picks for
-it, and against CP blocks that split a mask's rows.  Every variant's answer is held to the plain version (tolerance 0)
-and timed with ``chip_smoke.time_ms``.  Prints one line per variant, the
-bytes the CP call's ROI rows span in whole 32- and 64-byte pieces, and the
-card's name and power limit.
+Each variant is the shipped source of ``csrc/chi_build.cu``,
+``csrc/cp_count.cu`` or ``csrc/popcount.cu`` with one design choice undone
+by a text edit, built with the package's ``nvcc`` flags into
+``kernels/_build/ab/`` and called through the shipped launcher on the
+inputs of the main path: 2,048 saliency masks of 224x224 (an ingest chunk)
+and their binarisation for the CHI kernel, one descriptor over 3,861
+object-box ROIs of 4,096 resident masks for the CP kernel.  A small batch
+of each (64 masks; 170 ROIs) times the block-per-mask grid against the
+banded CHI grid the wrapper picks for it, and against CP blocks that split
+a mask's rows.  The popcount kernels run on the binarised resident masks
+(``> 0.5``, packed): the megakernel on 708 of them, as the packed filter's
+verification batch, with one object-box descriptor and none decided, then
+with three descriptors and half the masks' entries all decided; the pair
+kernel on the pair store's layout (image i as planes 2i and 2i + 1 of
+16,384 resident planes, ``object_boxes(seed=4)`` as the smoke's pair
+boxes), 8,192 images gathered as on the naive scan and indexed, and a
+1,115-image device round: the shipped word-column body (capped at 32
+registers), the same without the cap, and a body streaming the box's row
+span in 16-byte vectors, each timed four times in turns.  Every
+variant's answer is held to the plain version (tolerance 0) and timed with
+``chip_smoke.time_ms``.  Prints one line per variant, the
+bytes the CP call's ROI rows span in whole 32- and 64-byte pieces, the
+popcount calls' bounds and sector floors, the launch floor, the megakernel's
+time behind pinned copies of 8 B to 64 KB and with its operands read from
+pinned host memory, where its wrapper's host time goes (each piece on the
+host clock, against the step as the device backend runs it, with its copy
+back), and the card's name and power limit.  With ``--popcount`` only
+the popcount kernels' part runs.
 """
 
 from __future__ import annotations
@@ -23,6 +40,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -89,6 +107,119 @@ CP_VARIANTS = {
 }
 
 
+# The first grid of the megakernel: a warp per mask, its descriptors one
+# after another, each from device memory.
+WARP_PER_MASK = """
+__global__ void __launch_bounds__(kWarps * 32)
+fused_verify_warp_kern(const unsigned* __restrict__ words,
+                       const long long* __restrict__ positions, long long N,
+                       const int* __restrict__ flags,
+                       const int* __restrict__ rois,
+                       const int* __restrict__ decided,
+                       const int* __restrict__ lb, int Q, int B, int H,
+                       int nw, int* __restrict__ out) {
+  const int b = warp_item();
+  if (b >= B) return;
+  const unsigned* m = plane_of(words, positions, N, b, (size_t)H * nw);
+  for (int q = 0; q < Q; ++q) {
+    const size_t i = (size_t)q * B + b;
+    if (decided[i]) {
+      if ((threadIdx.x & 31) == 0) out[i] = lb[i];
+      continue;
+    }
+    const int c = cp_desc_count(m, H, nw, rois + 4 * i, flags[2 * q],
+                                flags[2 * q + 1]);
+    if ((threadIdx.x & 31) == 0) out[i] = c;
+  }
+}
+
+// No work: its launch is the floor"""
+FUSED_VARIANTS = {
+    "shipped": [],
+    "warp per mask (first grid)": [
+        ("\n// No work: its launch is the floor", WARP_PER_MASK),
+        ("  fused_verify_kern<<<B, kVerifyThreads, staged ? plane_bytes : 0,\n"
+         "                      static_cast<cudaStream_t>(stream)>>>(",
+         "  fused_verify_warp_kern<<<blocks_for(B), kWarps * 32, 0,\n"
+         "                      static_cast<cudaStream_t>(stream)>>>("),
+        ("      nw, staged, vec, static_cast<int*>(out));",
+         "      nw, static_cast<int*>(out));")],
+    # every descriptor counted from device memory, no shared copy
+    "direct loads": [("  const int staged = plane_bytes <= (size_t)kStageBytes;",
+                      "  const int staged = 0;")],
+    # a mask whose entries are all decided still stages its rows
+    "no skip of all-decided masks": [("    if (counted && !dec) {",
+                                      "    if (counted) {")],
+}
+# A pair body that streams the box's whole row span with 16-byte loads
+# (every fetched sector used whole, span masks from a per-warp table),
+# tried against the shipped word-column body and not shipped.
+PAIR_COLUMNS = ("  if (r.area() > 0) {  // lanes on the box's word columns, "
+                "two rows a step")
+VECTOR_BODY = """  if (r.area() > 0 && (uintptr_t)ma % 16 == 0 &&
+      (uintptr_t)mb % 16 == 0 && plane % 4 == 0 && nw <= 64) {
+    __shared__ unsigned span_tab[kWarps][64];
+    unsigned* tab = span_tab[threadIdx.x >> 5];
+    const int lane = threadIdx.x & 31;
+    for (int k = lane; k < nw; k += 32) tab[k] = span_mask(r.c0, r.c1, k);
+    __syncwarp();
+    auto add = [&](unsigned a, unsigned b, unsigned span) {
+      const unsigned ea = (a & keep_a) | (~a & flip_a);
+      const unsigned eb = (b & keep_b) | (~b & flip_b);
+      ci += __popc(ea & eb & span);
+      cu += __popc((ea | eb) & span);
+      cd += __popc(ea & ~eb & span);
+    };
+    const int k0 = r.c0 >> 5, k1 = (r.c1 + 31) >> 5;
+    const int s1 = ((r.r1 - 1) * nw + k1 + 3) & ~3;
+    int i = ((r.r0 * nw + k0) & ~3) + 4 * lane;
+    int row = i / nw, col = i - row * nw;
+    const int drow = 128 / nw, dcol = 128 % nw;
+    for (; i < s1; i += 256) {
+      const bool two = i + 128 < s1;
+      const uint4 a0 = __ldg(reinterpret_cast<const uint4*>(ma + i));
+      const uint4 b0 = __ldg(reinterpret_cast<const uint4*>(mb + i));
+      uint4 a1 = make_uint4(0, 0, 0, 0), b1 = a1;
+      if (two) {
+        a1 = __ldg(reinterpret_cast<const uint4*>(ma + i + 128));
+        b1 = __ldg(reinterpret_cast<const uint4*>(mb + i + 128));
+      }
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        if (v == 1 && !two) break;
+        const uint4 a = v ? a1 : a0, bb = v ? b1 : b0;
+        const unsigned wa[4] = {a.x, a.y, a.z, a.w};
+        const unsigned wb[4] = {bb.x, bb.y, bb.z, bb.w};
+        int rr = row, cc = col;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          add(wa[u], wb[u], (rr >= r.r0 && rr < r.r1) ? tab[cc] : 0u);
+          if (++cc == nw) {
+            cc = 0;
+            ++rr;
+          }
+        }
+        row += drow;
+        col += dcol;
+        if (col >= nw) {
+          col -= nw;
+          ++row;
+        }
+      }
+    }
+  } else""" + PAIR_COLUMNS[1:]
+# no floor of 8 blocks an SM: the compiler's own register count
+UNCAPPED = ("__launch_bounds__(kWarps * 32, 8)\npair_packed_kern",
+            "__launch_bounds__(kWarps * 32)\npair_packed_kern")
+PAIR_VARIANTS = {
+    "shipped": [],
+    # its own registers: under the shipped cap of 32 it spills
+    "vector streaming body": [(PAIR_COLUMNS, VECTOR_BODY), UNCAPPED],
+    "no register cap": [UNCAPPED],
+}
+N_FUSED, N_PAIRS = 708, 8192
+
+
 def build(name: str, variants: dict) -> dict:
     from repro_torch.kernels import cuda_lib
     out_dir = cuda_lib.BUILD_DIR / "ab"
@@ -146,6 +277,9 @@ def main() -> int:
                                        attacked_fraction=0.15, boxes=boxes)
     resident = torch.from_numpy(host).to(dev)
     del host
+    if sys.argv[1:] == ["--popcount"]:  # the popcount kernels' part only
+        popcount_ab(torch, (resident > 0.5).cpu().numpy(), boxes, stream)
+        return 0
 
     # -- chi_cell_hist: an ingest chunk, float and binary; a small batch ---
     edges = torch.arange(1, 16, dtype=torch.float32) / 16
@@ -241,7 +375,223 @@ def main() -> int:
                                                      uv))
     print(f"ab cp_count_multi shipped, gather + kernel through the wrapper: "
           f"{step:.4f} ms")
+    popcount_ab(torch, (resident > 0.5).cpu().numpy(), boxes, stream)
     return 0
+
+
+def host_ms(torch, fn, reps=2000, warmup=50) -> float:
+    """Mean host-clock time of ``fn`` over ``reps`` back-to-back calls, the
+    card drained before and after."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
+def fused_host_breakdown(torch, words, pos, case, rng) -> None:
+    """Where the megakernel wrapper's host time goes on the packed filter's
+    batch (Q=1, 708 masks, none decided): each piece of
+    ``fused_bounds_verify_cuda`` alone on the host clock, the whole
+    wrapper, the step as the device backend runs it (the wrapper, then the
+    (Q, B) counts copied to the host, which waits for the card), and an
+    empty launch with the same copy back as its floor."""
+    from repro_torch.kernels import cuda_lib, ops, popcount, ref
+    rois, lvs, uvs, dec = case
+    rois = rois.astype(np.int32)
+    lvs, uvs = np.float32(lvs), np.float32(uvs)
+    lb = rng.integers(0, 1000, dec.shape).astype(np.int32)
+    args = (words, rois, lvs, uvs, dec, lb, pos)
+    q, b = dec.shape
+    dev = words.device
+    flags = popcount._flags(lvs, uvs)
+    parts = [pos, flags, rois, dec, lb]
+    card, (pos_addr, *addr) = cuda_lib.stage(parts, dev)
+    small = torch.zeros((q, b), dtype=torch.int32, device=dev)
+    pieces = {
+        "range flags": lambda: popcount._flags(lvs, uvs),
+        "operand checks": lambda: (
+            popcount._host_rows(rois, np.int32, (q, b, 4), "rois"),
+            popcount._host_rows(dec, np.int32, (q, b), "decided") != 0,
+            popcount._host_rows(lb, np.int32, (q, b), "lb")),
+        "pinned buffer": lambda: torch.empty(
+            sum(p.size for p in parts) + b, dtype=torch.int32,
+            pin_memory=True),
+        "stage (pinned buffer + concatenate + copy)": lambda: (
+            cuda_lib.stage(parts, dev)),
+        "launch (output + ctypes)": lambda: popcount._fused_launch(
+            words, q, b, *addr, pos_addr),
+        "whole wrapper": lambda: ops.fused_bounds_verify(*args),
+        "wrapper + copy back (the device step)": lambda: (
+            ops.fused_bounds_verify(*args).cpu().numpy()),
+        "empty launch + copy back": lambda: (
+            popcount.empty_launch(dev), small.cpu().numpy()),
+    }
+    want = ref.fused_bounds_verify_ref(*args)
+    if not torch.equal(ops.fused_bounds_verify(*args), want):
+        raise SystemExit("fused wrapper differs")
+    times = {label: host_ms(torch, fn) for label, fn in pieces.items()}
+    del card
+    print("ab fused_bounds_verify Q=1, host clock per call (ms): " +
+          "; ".join(f"{label} {t:.4f}" for label, t in times.items()))
+
+
+def popcount_ab(torch, binary, boxes, stream) -> None:
+    """The megakernel's and the packed pair kernel's variants on the
+    binarised resident masks."""
+    from chip_smoke import (card_popcount_rate, packed_bound_of,
+                            pair_bound_of, time_ms)
+    from repro_torch.core.packing import pack_masks
+    from repro_torch.data import masks as masks_mod
+    from repro_torch.kernels import cuda_lib, ops, popcount, ref
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dev = torch.device("cuda")
+    words = torch.from_numpy(pack_masks(binary).view(np.int32)).to(dev)
+    n, h, nw = words.shape
+    rate = card_popcount_rate(torch)
+    floor = time_ms(torch, lambda: popcount.empty_launch(dev))
+    print(f"ab launch floor (empty kernel): {floor:.4f} ms")
+
+    # -- fused_bounds_verify: the packed filter's batch, then three
+    # descriptors with half the masks' entries all decided
+    rng = np.random.default_rng(3)
+    pos = np.sort(rng.choice(n, N_FUSED, replace=False))
+    half = rng.random(N_FUSED) < 0.5
+    cases = {
+        "Q=1, none decided": (boxes[pos][None], [0.5], [1.5],
+                              np.zeros((1, N_FUSED), np.int32)),
+        "Q=3, half the masks all decided": (
+            np.stack([boxes[pos], np.tile([0, 0, h, 224], (N_FUSED, 1)),
+                      np.tile([3, 5, 221, 223], (N_FUSED, 1))]),
+            [0.5, 0.5, 0.0], [1.5, 1.5, 1.0],
+            np.tile(half, (3, 1)).astype(np.int32))}
+    pos_d = torch.from_numpy(pos).to(dev)
+    inputs = {}
+    for label, (rois, lvs, uvs, dec) in cases.items():
+        rois = rois.astype(np.int32)
+        lvs, uvs = np.float32(lvs), np.float32(uvs)
+        lb = rng.integers(0, 1000, dec.shape).astype(np.int32)
+        args = (words, rois, lvs, uvs, dec, lb, pos)
+        want = ref.fused_bounds_verify_ref(*args)
+        bound, _, sector = packed_bound_of(
+            torch, ref, "fused_bounds_verify", (words[pos_d],) + args[1:6],
+            rate)
+        wrap = time_ms(torch, lambda a=args: ops.fused_bounds_verify(*a))
+        flags = ref._range_flags(lvs, uvs).reshape(-1, 2)
+        # the operands read by the kernel straight from pinned host memory
+        # (device-visible under unified addressing): one device operation a
+        # call, no copy
+        pinned = [torch.from_numpy(x).pin_memory() for x in
+                  (flags, rois, dec, lb, pos)]
+        zero = time_ms(torch, lambda h=pinned, q=dec.shape[0]: (
+            popcount._fused_launch(words, q, N_FUSED,
+                                   *(t.data_ptr() for t in h))))
+        torch.cuda.synchronize()
+        if not torch.equal(popcount._fused_launch(
+                words, dec.shape[0], N_FUSED,
+                *(t.data_ptr() for t in pinned)), want):
+            raise SystemExit("fused zero-copy read differs")
+        print(f"ab fused_bounds_verify {label}: bound {bound:.4f} ms, sector "
+              f"floor {sector:.4f} ms; shipped through the wrapper (one "
+              f"staged copy) {wrap:.4f} ms; the kernel reading its operands "
+              f"from pinned host memory {zero:.4f} ms")
+        inputs[label] = (want, bound, [torch.from_numpy(x).to(dev) for x in
+                                       (flags, rois, dec, lb)])
+    for label, lib in build("popcount", FUSED_VARIANTS).items():
+        lib.fused_verify_launch.argtypes = [P, P, L, P, P, P, P, I, I, I, I,
+                                            P, P]
+        for case, (want, bound, (fl, ro, de, lb)) in inputs.items():
+            q, b = de.shape
+            out = torch.empty_like(want)
+
+            def run(lib=lib, fl=fl, ro=ro, de=de, lb=lb, out=out, q=q, b=b):
+                rc = lib.fused_verify_launch(
+                    words.data_ptr(), pos_d.data_ptr(), n, fl.data_ptr(),
+                    ro.data_ptr(), de.data_ptr(), lb.data_ptr(), q, b, h, nw,
+                    out.data_ptr(), stream)
+                cuda_lib.check(rc, "fused_bounds_verify")
+            run()
+            if not torch.equal(out, want):
+                raise SystemExit(f"fused variant {label} differs")
+            ms = time_ms(torch, run)
+            print(f"ab fused_bounds_verify {case}, {label}, indexed: "
+                  f"{ms:.4f} ms, bound {bound:.4f} ms, {ms / bound:.2f}x")
+
+    fused_host_breakdown(torch, words, pos, cases["Q=1, none decided"], rng)
+
+    # the staged copy's size against the device time of copy + kernel (the
+    # kernel on the Q=1 operands already on the card)
+    _, _, (fl, ro, de, lb) = inputs["Q=1, none decided"]
+    for nbytes in (8, 1024, 4096, 16384, 22656, 65536):
+        src = torch.zeros(nbytes // 4, dtype=torch.int32).pin_memory()
+        dst = torch.empty(nbytes // 4, dtype=torch.int32, device=dev)
+
+        def run(src=src, dst=dst):
+            dst.copy_(src, non_blocking=True)
+            popcount.fused_verify_launch(words, fl, ro, de, lb, pos_d)
+        print(f"ab fused_bounds_verify Q=1, a {nbytes}-byte pinned copy + "
+              f"the kernel: {time_ms(torch, run):.4f} ms")
+
+    # -- pair_counts_packed in the pair store's layout: image i is planes
+    # (2i, 2i + 1) of 16,384 resident planes (the 4,096 masks four times,
+    # 103 MB: past the 50 MB L2, as the smoke's store), all 8,192 images
+    # gathered as on the naive scan, and indexed: all of them, and a
+    # 1,115-image device round
+    big = words.repeat(4, 1, 1)
+    boxes = masks_mod.object_boxes(N_PAIRS, h, 224, seed=4)
+    f1, f0 = ref._thresh_flags(0.6)
+    calls = {}
+    for label, imgs in (("8,192 pairs", np.arange(N_PAIRS)),
+                        ("1,115-pair round",
+                         np.sort(rng.choice(N_PAIRS, 1115, replace=False)))):
+        pa = torch.from_numpy(2 * imgs).to(dev)
+        pb = pa + 1
+        rois = torch.from_numpy(boxes[imgs]).to(dev)
+        ga, gb = big[pa], big[pb]
+        want = torch.stack(ref.pair_counts_packed_ref(ga, gb, rois, 0.6,
+                                                      0.6))
+        bound, _, sector = pair_bound_of(torch, ref, "pair_counts_packed",
+                                         (ga, gb, rois, 0.6, 0.6), rate)
+        print(f"ab pair_counts_packed {label}: bound {bound:.4f} ms, sector "
+              f"floor {sector:.4f} ms")
+        calls[f"{label}, indexed"] = (big, big, pa, pb, rois, want, bound,
+                                      sector)
+        if len(imgs) == N_PAIRS:
+            calls[f"{label}, gathered"] = (ga, gb, None, None, rois, want,
+                                           bound, sector)
+    libs = build("popcount", PAIR_VARIANTS)
+    for lib in libs.values():
+        lib.pair_packed_launch.argtypes = [P, P, L, P, P, L, P] + [I] * 7 + \
+            [P, P]
+    for case, (a, b, p_a, p_b, rois, want, bound, sector) in calls.items():
+        runs = {label: [] for label in libs}
+        # in turns: each variant, then again in reverse order, twice
+        for label in (list(libs) + list(libs)[::-1]) * 2:
+            lib = libs[label]
+            out = torch.empty_like(want)
+
+            def run(lib=lib, a=a, b=b, p_a=p_a, p_b=p_b, rois=rois, out=out):
+                rc = lib.pair_packed_launch(
+                    a.data_ptr(), None if p_a is None else p_a.data_ptr(),
+                    a.shape[0], b.data_ptr(),
+                    None if p_b is None else p_b.data_ptr(), b.shape[0],
+                    rois.data_ptr(), f1, f0, f1, f0, rois.shape[0], h, nw,
+                    out.data_ptr(), stream)
+                cuda_lib.check(rc, "pair_counts_packed")
+            run()
+            if not torch.equal(out, want):
+                raise SystemExit(f"pair variant {label} differs")
+            runs[label].append(time_ms(torch, run))
+        for label, ms in runs.items():
+            mean = sum(ms) / len(ms)
+            print(f"ab pair_counts_packed {case}, {label}: {mean:.4f} ms "
+                  f"(runs {', '.join(f'{t:.4f}' for t in ms)}), bound "
+                  f"{bound:.4f} ms, {mean / bound:.2f}x, sector floor "
+                  f"{mean / sector:.2f}x")
 
 
 if __name__ == "__main__":

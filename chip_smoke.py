@@ -37,7 +37,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    same queries on a float store of the first chunk give the packed
    store's answers;
 7. the four popcount kernels against their plain versions (main-path
-   inputs and edge cases, tolerance 0) and timed beside their bounds;
+   inputs and edge cases, positions and misaligned planes among them,
+   tolerance 0) and timed beside their bounds and sector floors;
+   ``fused_bounds_verify`` also as its verification step runs it (one
+   staged copy, indexed reads of the resident words) against the copies
+   and gather it replaced;
 8. the pair path: 8,192 images of (model saliency, human attention) masks
    (benchmarks/bench_pair.py's recipe, made in worker processes) ingested
    as a float store and, binarised, as a packed store; on each, the
@@ -48,13 +52,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and naive scan, and a float store of the first binary chunk gives the
    packed store's answers;
 9. the two pair kernels against their plain versions (main-path inputs and
-   edge cases, tolerance 0) and timed beside their bounds.
+   edge cases, tolerance 0) and timed beside their bounds and sector
+   floors; ``pair_counts_packed`` also as a device round runs it (both
+   roles read in place) against the two gathers it replaced.
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
 carry ``cp_count_packed`` and the pair kernels' largest calls) and read
 just after it; every kernel of that path must have been launched there.
-The script prints the build, the card, per-query times and stats, a
+The script prints the build, the card, the launch floor (the device time
+of an empty kernel), per-query times and stats, a
 ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it; without either it exits non-zero.
@@ -181,6 +188,31 @@ def time_ms(torch, fn, reps=20, warmup=2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def wall_ms(torch, fn, reps=20, warmup=2) -> float:
+    """Mean host wall time of ``fn`` followed by a synchronize: a step's
+    time as its caller waits for it, host work and blocking copies
+    included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sector_bytes(torch, needed, per_sector: int) -> int:
+    """Bytes of the 32-byte sectors that the True entries of a contiguous
+    element map lie in (``per_sector`` elements a sector, the array on a
+    sector boundary): what the memory system moves for those elements."""
+    flat = needed.reshape(-1)
+    pad = (-flat.numel()) % per_sector
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return int(flat.view(-1, per_sector).any(1).sum()) * 32
+
+
 def roi_pixels(torch, rois, h, w):
     r = rois.to(torch.int64)
     hh = (r[..., 2].clamp(max=h) - r[..., 0].clamp(min=0)).clamp(min=0)
@@ -203,7 +235,7 @@ def bound_of(torch, ref, name, args):
     elif name == "cp_count_multi":
         pos_bytes = 8 * len(args[4]) if len(args) > 4 and args[4] is not None \
             else 0
-        x = gathered(args)[0]
+        x = gathered(name, args)[0]
         b, h, w = x.shape
         rois = torch.as_tensor(args[1]).to(x.device, torch.int32)
         union = torch.zeros((b, h, w), dtype=torch.bool, device=x.device)
@@ -341,27 +373,49 @@ def binary_chunk(job):
     return m > 0.5
 
 
+# The kernels that read a resident array in place: argument index of each
+# position list -> index of the mask operand it indexes.
+POSITION_ARGS = {"cp_count_multi": {4: 0},
+                 "fused_bounds_verify": {6: 0},
+                 "pair_counts_packed": {5: 0, 6: 1}}
+
+
+def positions_of(name, a) -> list:
+    """The position lists a kernel call carried (none: the batch as
+    given)."""
+    return [a[i] for i in POSITION_ARGS.get(name, ())
+            if len(a) > i and a[i] is not None]
+
+
 def call_size(name, a):
-    """Elements a kernel call reads from: the batch, or for a
-    ``cp_count_multi`` call with positions (on the resident array)
-    len(positions) masks of it."""
-    if name == "cp_count_multi" and len(a) > 4 and a[4] is not None:
-        return len(a[4]) * a[0].shape[1] * a[0].shape[2]
+    """Elements a kernel call reads from: the batch, or for a call with
+    positions (on the resident array) len(positions) masks of it."""
+    pos = positions_of(name, a)
+    if pos:
+        return len(pos[0]) * a[0].shape[1] * a[0].shape[2]
     return a[0].numel()
 
 
-def gathered(a):
-    """A ``cp_count_multi`` call's arguments with its positions resolved:
-    the gathered batch ``masks[positions]`` (what the plain version, the
-    bound and the kernel alone are measured on)."""
-    if len(a) > 4 and a[4] is not None:
-        return (a[0][a[4]],) + tuple(a[1:4])
-    return a
+def gathered(name, a):
+    """A kernel call's arguments with its positions resolved: the gathered
+    batches ``masks[positions]`` (what the plain version, the bound and
+    the kernel alone are measured on)."""
+    import torch
+    idx = POSITION_ARGS.get(name)
+    if not idx:
+        return a
+    out = list(a[:min(idx)])
+    for i, t in idx.items():
+        if len(a) > i and a[i] is not None:
+            out[t] = a[t][torch.as_tensor(a[i], device=a[t].device)]
+    return tuple(out)
 
 
 def record_largest(ops, names, largest):
     """Wrap the CUDA launchers of kernels ``names`` so that each keeps the
-    arguments of its largest call in ``largest``; returns the undo."""
+    arguments of its largest call in ``largest[name]`` (and of its largest
+    call with positions in ``largest[(name, "indexed")]``); returns the
+    undo."""
     saved = {k.name: k.cuda for k in ops.KERNELS if k.name in names}
     for k in ops.KERNELS:
         if k.name not in saved:
@@ -369,8 +423,11 @@ def record_largest(ops, names, largest):
 
         def rec(*a, name=k.name, launch=k.cuda):
             size = call_size(name, a)
-            if size >= largest.get(name, (-1, None))[0]:
-                largest[name] = (size, a)
+            keys = [name] + ([(name, "indexed")] if positions_of(name, a)
+                             else [])
+            for key in keys:
+                if size >= largest.get(key, (-1, None))[0]:
+                    largest[key] = (size, a)
             return launch(*a)
         k.cuda = rec
 
@@ -397,19 +454,25 @@ def touched_words(torch, rois, h, nw):
 
 
 def packed_bound_of(torch, ref, name, args, popc_per_s):
-    """(bound_ms, bound_by) of a popcount kernel call: the words of ROI rows
-    that the ROI touches, read once (4 B each, plus 16 B per counted ROI,
-    12 B per (q, b) of decided / lb / output for the megakernel, 4 B per
-    other output), over the HBM rate, against one popcount per touched
-    word and counted descriptor (two for MASK_AGG: AND and OR) over the
-    card's popcount rate — whichever is larger."""
+    """(bound_ms, bound_by, sector_ms) of a popcount kernel call: the words
+    of ROI rows that the ROI touches, read once (4 B each, plus 16 B per
+    counted ROI, 12 B per (q, b) of decided / lb / output for the
+    megakernel, 4 B per other output), over the HBM rate, against one
+    popcount per touched word and counted descriptor (two for MASK_AGG: AND
+    and OR) over the card's popcount rate — whichever is larger.  The
+    sector floor moves the 32-byte sectors those words lie in instead of
+    the words, the same other bytes, over the HBM rate."""
     x = args[0]
     dev = x.device
     if name == "mask_agg_counts_packed":
         n, s, h, nw = x.shape
         rois = torch.as_tensor(args[1]).to(dev)
-        words = int(touched_words(torch, rois, h, nw).sum())
-        nbytes = words * s * 4 + n * 16 + n * 8
+        touched = touched_words(torch, rois, h, nw)
+        words = int(touched.sum())
+        other = n * 16 + n * 8
+        nbytes = words * s * 4 + other
+        sectors = sector_bytes(torch, touched[:, None].expand(n, s, h, nw),
+                               8)
         popc = 2 * words
     else:
         b, h, nw = x.shape
@@ -424,11 +487,16 @@ def packed_bound_of(torch, ref, name, args, popc_per_s):
             out_b = 12
         words = touched_words(torch, rois, h, nw) & counted[..., None, None]
         popc = int(words.sum())
-        nbytes = (int(words.any(0).sum()) * 4 + int(counted.sum()) * 16 +
-                  q * b * out_b)
+        needed = words.any(0)
+        other = int(counted.sum()) * 16 + q * b * out_b
+        nbytes = int(needed.sum()) * 4 + other
+        sectors = sector_bytes(torch, needed, 8)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = popc / popc_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    sector_ms = (sectors + other) / PEAK_BYTES_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", sector_ms
+    return t_ops, "operations", sector_ms
 
 
 def packed_edge_cases(torch, ops, ref, pack_masks, dev):
@@ -468,12 +536,24 @@ def packed_edge_cases(torch, ops, ref, pack_masks, dev):
               ops.cp_count_multi_packed(m, rois_q, lvs, uvs),
               ref.cp_count_multi_packed_ref(m, rois_q, lvs, uvs))
         lb = rng.integers(0, 1000, (3, b)).astype(np.int32)
-        for dec in (rng.random((3, b)) < 0.5, np.ones((3, b), bool),
-                    np.zeros((3, b), bool)):
+        mixed = rng.random((3, b)) < 0.5
+        mixed[:, 0] = True          # a mask whose entries are all decided
+        for dec in (mixed, np.ones((3, b), bool), np.zeros((3, b), bool)):
             dec = dec.astype(np.int32)
-            check("fused_bounds_verify",
-                  ops.fused_bounds_verify(m, rois_q, lvs, uvs, dec, lb),
-                  ref.fused_bounds_verify_ref(m, rois_q, lvs, uvs, dec, lb))
+            for words in (m, misaligned(torch, m)):
+                check("fused_bounds_verify",
+                      ops.fused_bounds_verify(words, rois_q, lvs, uvs, dec,
+                                              lb),
+                      ref.fused_bounds_verify_ref(words, rois_q, lvs, uvs,
+                                                  dec, lb))
+                # positions that repeat, run backwards, or are empty
+                for pos in ([b - 1, 0, b - 1, 0], list(range(b))[::-1], []):
+                    pn = np.asarray(pos, np.int64)
+                    args = (words, rois_q[:, torch.as_tensor(pn)], lvs, uvs,
+                            dec[:, pn], lb[:, pn], pn)
+                    check("fused_bounds_verify",
+                          ops.fused_bounds_verify(*args),
+                          ref.fused_bounds_verify_ref(*args))
         grp = m[: (b // 2) * 2].reshape(b // 2, 2, h, nw).contiguous()
         for t in vals:
             check("mask_agg_counts_packed",
@@ -629,10 +709,32 @@ def check_answers(results, naive, sqls, prefix):
               f"({sn.n_verified} candidates scanned in {secs:.3f} s)")
 
 
+def step_times(torch, routes) -> dict:
+    """Each route of a step timed on the device timeline (``time_ms``) and
+    on the host clock with a synchronize after each call (``wall_ms``),
+    old and new in turns: old, new, new, old."""
+    order = list(routes) + list(routes)[::-1]
+    runs = {r: [] for r in routes}
+    for r in order:
+        runs[r].append((time_ms(torch, routes[r]), wall_ms(torch, routes[r])))
+    return {r: tuple(sum(v) / len(v) for v in zip(*t))
+            for r, t in runs.items()}
+
+
+def print_step(name, what, t):
+    (old_label, (old_dev, old_wall)), (new_label, (new_dev, new_wall)) = \
+        t.items()
+    print(f"main-path step {name}: {what}; device time {old_label} "
+          f"{old_dev:.4f} ms, {new_label} {new_dev:.4f} ms "
+          f"({old_dev / new_dev:.2f}x); host wall with a synchronize "
+          f"{old_wall:.4f} ms, {new_wall:.4f} ms "
+          f"({old_wall / new_wall:.2f}x)")
+
+
 def multi_main_path_step(torch, ops, ref, a):
     """``cp_count_multi``'s largest main-path call as the step runs it: the
     indexed kernel on the resident array, held against its plain version
-    (tolerance 0) and timed beside the gather + kernel on the gathered
+    (tolerance 0) and timed against the gather + kernel on the gathered
     batch, the step's route before positions.  Returns the gathered
     call's arguments, on which the kernel alone is measured."""
     if len(a) <= 4 or a[4] is None:
@@ -643,18 +745,107 @@ def multi_main_path_step(torch, ops, ref, a):
         fail(f"indexed cp_count_multi differs from its plain version "
              f"(max abs err {err})")
     pos = a[4]
-    t_new = time_ms(torch, lambda: ops.cp_count_multi(*a))
-    t_old = time_ms(torch, lambda: ops.cp_count_multi(a[0][pos], *a[1:4]))
-    print(f"main-path step cp_count_multi: {len(pos)} of {a[0].shape[0]} "
-          f"resident masks, Q={a[1].shape[0]}, indexed equal; gather + "
-          f"kernel {t_old:.4f} ms, indexed kernel {t_new:.4f} ms "
-          f"({t_old / t_new:.2f}x)")
-    return gathered(a)
+    t = step_times(torch, {
+        "gather + kernel": lambda: ops.cp_count_multi(a[0][pos], *a[1:4]),
+        "indexed kernel": lambda: ops.cp_count_multi(*a)})
+    print_step("cp_count_multi", f"{len(pos)} of {a[0].shape[0]} resident "
+               f"masks, Q={a[1].shape[0]}, indexed equal", t)
+    return gathered("cp_count_multi", a)
 
 
-def kernel_entry(torch, ops, name, a, plain, launches, n_edge, bound):
+def fused_main_path_step(torch, ops, ref, a):
+    """``fused_bounds_verify``'s largest indexed main-path call as the
+    device step runs it: one staged copy of its host operands and the
+    indexed kernel on the resident words, held against its plain version
+    (tolerance 0) and timed against the gathering route: four pageable
+    copies (positions, ROIs, verdicts, bounds), a pinned copy of the
+    flags, a gather and the kernel on the gathered batch.  The old route's
+    pageable copies each block the host until the card drains, so its span
+    on the device timeline counts host stalls that the new route, queued
+    whole behind the sleep, does not show: the host clock compares what a
+    caller waits for.  Returns the gathered call's arguments, on which the
+    kernel alone is measured."""
+    from repro_torch.kernels import cuda_lib, popcount
+    if len(a) <= 6 or a[6] is None:
+        fail("the largest indexed fused_bounds_verify call carried no "
+             "positions")
+    packed, rois, lvs, uvs, dec, lb, pos = a
+    dev = packed.device
+    flags = ref._range_flags(lvs, uvs).reshape(-1, 2)
+
+    def old():
+        pos_d = torch.from_numpy(pos).to(dev)
+        rois_d = torch.from_numpy(rois).to(dev)
+        dec_d = torch.from_numpy(dec).to(dev)
+        lb_d = torch.from_numpy(lb).to(dev)
+        flags_d = cuda_lib.to_card(flags, dev)
+        return popcount.fused_verify_launch(packed.index_select(0, pos_d),
+                                            flags_d, rois_d, dec_d, lb_d)
+
+    def new():
+        return ops.fused_bounds_verify(*a)
+    want = ref.fused_bounds_verify_ref(*a)
+    for route in (old, new):
+        err = max_abs_err(torch, route(), want)
+        if err != 0:
+            fail(f"fused_bounds_verify step ({route.__name__} route) differs "
+                 f"from its plain version (max abs err {err})")
+    t = step_times(torch, {"4 copies + gather + kernel": old,
+                           "1 staged copy + indexed kernel": new})
+    print_step("fused_bounds_verify",
+               f"{len(pos)} of {packed.shape[0]} resident masks, "
+               f"Q={rois.shape[0]}, {int(dec.sum())} entries decided, both "
+               f"routes equal, the old route's span with its host stalls",
+               t)
+    return gathered("fused_bounds_verify", a)
+
+
+def pair_main_path_step(torch, ops, ref, a):
+    """``pair_counts_packed``'s largest indexed main-path call (a device
+    verification round): the kernel reading both roles in place, held
+    against its plain version (tolerance 0) and timed against the
+    gathering route, a gather of each role and the kernel on the gathered
+    batches."""
+    if len(a) <= 6 or a[5] is None or a[6] is None:
+        fail("the largest indexed pair_counts_packed call carried no "
+             "positions")
+    pa, pb, rois, ta, tb, pos_a, pos_b = a
+
+    def old():
+        return ops.pair_counts_packed(pa.index_select(0, pos_a),
+                                      pb.index_select(0, pos_b), rois, ta, tb)
+
+    def new():
+        return ops.pair_counts_packed(*a)
+    want = ref.pair_counts_packed_ref(*a)
+    for route in (old, new):
+        err = max_abs_err(torch, route(), want)
+        if err != 0:
+            fail(f"pair_counts_packed step ({route.__name__} route) differs "
+                 f"from its plain version (max abs err {err})")
+    t = step_times(torch, {"2 gathers + kernel": old,
+                           "indexed kernel": new})
+    print_step("pair_counts_packed",
+               f"{len(pos_a)} pairs of {pa.shape[0]} resident masks, both "
+               f"routes equal", t)
+
+
+def misaligned(torch, words):
+    """The same words in a copy whose base is one word past a 16-byte
+    boundary: the megakernel stages such planes word by word."""
+    buf = torch.empty(words.numel() + 1, dtype=words.dtype,
+                      device=words.device)
+    out = buf[1:].view(words.shape)
+    out.copy_(words)
+    return out
+
+
+def kernel_entry(torch, ops, name, a, plain, launches, n_edge, bound,
+                 floor_ms=None):
     """Hold a kernel against its plain version on its largest main-path
-    call (tolerance 0), time both, and return its ``kernels`` entry."""
+    call (tolerance 0), time both, and return its ``kernels`` entry.  The
+    parity line adds the sector floor where ``bound`` gives one, and the
+    launch floor ``floor_ms`` where given."""
     k = getattr(ops, name)
     got = k(*a)
     want = plain(*a)
@@ -665,13 +856,16 @@ def kernel_entry(torch, ops, name, a, plain, launches, n_edge, bound):
              f"{tuple(a[0].shape)} (max abs err {err})")
     ms = time_ms(torch, lambda: k(*a))
     plain_ms = time_ms(torch, lambda: plain(*a), reps=3, warmup=1)
-    bound_ms, bound_by = bound(name, a)
+    bound_ms, bound_by, *sector = bound(name, a)
+    floors = "".join([f", sector floor {sector[0]:.4f} ms" if sector else "",
+                      f", launch floor {floor_ms:.4f} ms"
+                      if floor_ms is not None else ""])
     src, replaces = KERNEL_INFO[name]
     print(f"parity {name}: main-path shape {tuple(a[0].shape)} "
           f"{str(a[0].dtype).replace('torch.', '')} equal, "
           f"{n_edge} edge cases equal; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), library none")
+          f"({bound_by}){floors}, library none")
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": int(launches),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -708,9 +902,10 @@ def card_popcount_rate(torch) -> float:
     return rate
 
 
-def packed_phase(torch, dev, n):
+def packed_phase(torch, dev, n, floor_ms):
     """Phases 6-7: the packed path on ``n`` binary masks; returns the four
-    popcount kernels' ``kernels`` entries."""
+    popcount kernels' ``kernels`` entries.  ``floor_ms`` is the launch
+    floor, printed beside the megakernel."""
     from repro_torch.core import CHIConfig, MaskStore, build_chi_np
     from repro_torch.core import get_backend
     from repro_torch.core import queries as tq
@@ -813,6 +1008,8 @@ def packed_phase(torch, dev, n):
     # -- 7. the popcount kernels against their plain versions ---------------
     n_edge = packed_edge_cases(torch, ops, ref, pack_masks, dev)
     rate = card_popcount_rate(torch)
+    largest["fused_bounds_verify"] = (0, fused_main_path_step(
+        torch, ops, ref, largest[("fused_bounds_verify", "indexed")][1]))
     plain = {"cp_count_packed": ref.cp_count_packed_ref,
              "cp_count_multi_packed": ref.cp_count_multi_packed_ref,
              "mask_agg_counts_packed": ref.mask_agg_counts_packed_ref,
@@ -820,7 +1017,8 @@ def packed_phase(torch, dev, n):
     entries = [kernel_entry(
         torch, ops, name, largest[name][1], plain[name],
         packed_launches[name], n_edge[name],
-        lambda name, a: packed_bound_of(torch, ref, name, a, rate))
+        lambda name, a: packed_bound_of(torch, ref, name, a, rate),
+        floor_ms if name == "fused_bounds_verify" else None)
         for name in PACKED_KERNELS]
     a = largest["chi_cell_hist"][1]
     hist = ops.chi_cell_hist(*a)
@@ -837,25 +1035,38 @@ def packed_phase(torch, dev, n):
     return entries
 
 
-def pair_bound_of(torch, name, args, popc_per_s):
-    """(bound_ms, bound_by) of a pair kernel call: the ROI pixels (float)
-    or the words the ROI touches (packed) of both masks read once, 16 B
-    per ROI and 12 B of outputs per pair, over the HBM rate, against two
-    compares and three adds per pixel pair over the f32 rate, or three
-    popcounts per word pair over the card's popcount rate."""
+def pair_bound_of(torch, ref, name, args, popc_per_s):
+    """(bound_ms, bound_by, sector_ms) of a pair kernel call on its
+    gathered batches: the ROI pixels (float) or the words the ROI touches
+    (packed) of both masks read once, 16 B per ROI and 12 B of outputs per
+    pair, over the HBM rate, against two compares and three adds per pixel
+    pair over the f32 rate, or three popcounts per word pair over the
+    card's popcount rate.  The sector floor moves the 32-byte sectors those
+    pixels or words lie in instead, the same other bytes, over the HBM
+    rate."""
+    args = gathered(name, args)
     a = args[0]
-    b = a.shape[0]
+    b, h, w = a.shape
     rois = torch.as_tensor(args[2]).to(a.device)
     if name == "pair_counts":
-        px = int(roi_pixels(torch, rois, a.shape[1], a.shape[2]).sum())
+        px = int(roi_pixels(torch, rois, h, w).sum())
         nbytes = 2 * px * a.element_size() + b * 28
         t_ops = 5 * px / PEAK_F32_OPS_S * 1e3
+        per = 32 // a.element_size()
+        sectors = sum(sector_bytes(torch, ref._roi_mask(rois[i:i + 1024], h,
+                                                        w), per)
+                      for i in range(0, b, 1024))
     else:
-        words = int(touched_words(torch, rois, a.shape[1], a.shape[2]).sum())
+        touched = touched_words(torch, rois, h, w)
+        words = int(touched.sum())
         nbytes = 2 * words * 4 + b * 28
         t_ops = 3 * words / popc_per_s * 1e3
+        sectors = sector_bytes(torch, touched, 8)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    sector_ms = (2 * sectors + b * 28) / PEAK_BYTES_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", sector_ms
+    return t_ops, "operations", sector_ms
 
 
 def pair_edge_cases(torch, ops, ref, pack_masks, dev):
@@ -900,14 +1111,24 @@ def pair_edge_cases(torch, ops, ref, pack_masks, dev):
                 check("pair_counts_packed",
                       ops.pair_counts_packed(pa, pb, rois, ta, tb),
                       ref.pair_counts_packed_ref(pa, pb, rois, ta, tb))
+        # each role read in place through positions that repeat, run
+        # backwards or are empty, on aligned and misaligned planes
+        for wa, wb in ((pa, pb), (misaligned(torch, pa),
+                                  misaligned(torch, pb))):
+            for pos in ([b - 1, 0, b - 1, 0], list(range(b))[::-1], []):
+                p = torch.tensor(pos, dtype=torch.int64, device=dev)
+                args = (wa, wb, rois[p], 0.5, -0.5, p, p.flip(0))
+                check("pair_counts_packed", ops.pair_counts_packed(*args),
+                      ref.pair_counts_packed_ref(*args))
     torch.cuda.synchronize()
     return n_cases
 
 
-def pair_phase(torch, dev, n_images):
+def pair_phase(torch, dev, n_images, floor_ms):
     """Phases 8-9: the dual-mask pair operator on ``n_images`` images of
     (saliency, attention) masks, a float and a binary leg; returns the two
-    pair kernels' ``kernels`` entries."""
+    pair kernels' ``kernels`` entries.  ``floor_ms`` is the launch floor,
+    printed beside the packed pair kernel."""
     from repro_torch.core import CHIConfig, MaskStore, build_chi_np
     from repro_torch.core import queries as tq
     from repro_torch.core.packing import pack_masks
@@ -1010,11 +1231,14 @@ def pair_phase(torch, dev, n_images):
     # -- 9. the pair kernels against their plain versions ------------------
     n_edge = pair_edge_cases(torch, ops, ref, pack_masks, dev)
     rate = card_popcount_rate(torch)
+    pair_main_path_step(torch, ops, ref,
+                        largest[("pair_counts_packed", "indexed")][1])
     plain = {"pair_counts": ref.pair_counts_ref,
              "pair_counts_packed": ref.pair_counts_packed_ref}
     return [kernel_entry(
         torch, ops, name, largest[name][1], plain[name], pair_launches[name],
-        n_edge[name], lambda name, a: pair_bound_of(torch, name, a, rate))
+        n_edge[name], lambda name, a: pair_bound_of(torch, ref, name, a, rate),
+        floor_ms if name == "pair_counts_packed" else None)
         for name in PAIR_KERNELS]
 
 
@@ -1033,7 +1257,7 @@ def main() -> int:
     from repro_torch.core import queries as tq
     from repro_torch.core.store import MASK_META_DTYPE
     from repro_torch.data import masks as masks_mod
-    from repro_torch.kernels import cuda_lib, ops, ref
+    from repro_torch.kernels import cuda_lib, ops, popcount, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1055,6 +1279,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
+    # the device time of a launch that does nothing: the floor under the
+    # small calls (the megakernel's batches, the pair rounds)
+    floor_ms = time_ms(torch, lambda: popcount.empty_launch(dev))
+    print(f"launch floor: empty kernel {floor_ms:.4f} ms ({smi})")
 
     # -- data (set-up, not timed as ingest) ---------------------------------
     t0 = time.perf_counter()
@@ -1145,11 +1373,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6-7. the packed path, then its kernels -----------------------------
-    kernels += packed_phase(torch, dev, N_PACKED)
+    kernels += packed_phase(torch, dev, N_PACKED, floor_ms)
     torch.cuda.empty_cache()
 
     # -- 8-9. the pair operator, then its kernels ---------------------------
-    kernels += pair_phase(torch, dev, N_PAIRS)
+    kernels += pair_phase(torch, dev, N_PAIRS, floor_ms)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import cuda_lib
 from ..kernels import ops as kops
 from ..obs.metrics import REGISTRY as _REG
 from . import packing
@@ -315,10 +316,11 @@ class HostBackend(ExecBackend):
                             decided, lb):
         # masks_for meters the load (in packed bytes) and shares rows with
         # any other term touching the same candidates.
-        dev = _device_of(ctx.store)
+        # The descriptors, verdicts and bounds stay host arrays: the wrapper
+        # stages them in one copy.
         return _host(kops.fused_bounds_verify(
-            _to(ctx.masks_for(batch), dev), _to(rois_q, dev), lvs, uvs,
-            _to(decided, dev), _to(lb, dev)))
+            _to(ctx.masks_for(batch), _device_of(ctx.store)), rois_q, lvs,
+            uvs, decided, lb))
 
 
 # ---------------------------------------------------------------------------
@@ -371,13 +373,6 @@ def _device_group_counts_packed(packed, flat_pos, rois, thresh, s: int):
     return kops.mask_agg_counts_packed(grp, rois, thresh)
 
 
-def _device_fused_verify(packed, pos, rois_q, lvs, uvs, decided, lb):
-    """Gather a verification batch from the resident packed words and run
-    the bounds+verify megakernel — one launch for the whole batch."""
-    return kops.fused_bounds_verify(packed.index_select(0, pos), rois_q,
-                                    lvs, uvs, decided, lb)
-
-
 def _device_pair_cells(tables, pos_a, pos_b, ks, rois, rb, cb, stat):
     """Pair-term cell combine with both role gathers, the per-cell
     thresholded counts and the cell algebra all on the device — the pair
@@ -391,17 +386,23 @@ def _device_pair_cells(tables, pos_a, pos_b, ks, rois, rb, cb, stat):
         rois, rb, cb)
 
 
-def _pair_passes(a, b, specs, packed: bool) -> np.ndarray:
-    """Q pair descriptors ``(rois, ta, tb)`` over the gathered role rows
-    ``a`` / ``b`` → (Q, 3, B) int64 counts, one kernel launch each.  The
+def _pair_passes(a, b, specs, packed: bool, pos_a=None,
+                 pos_b=None) -> np.ndarray:
+    """Q pair descriptors ``(rois, ta, tb)`` over the role rows ``a`` / ``b``
+    → (Q, 3, B) int64 counts, one kernel launch each and one copy to the
+    host for the pass.  With ``pos_a`` / ``pos_b`` (packed only) the roles
+    are rows ``pos_a`` of ``a`` and ``pos_b`` of ``b``, read in place.  The
     float kernel compares in the mask dtype; the packed one takes flags
     from float32-rounded thresholds (the wrappers do both)."""
     kernel = kops.pair_counts_packed if packed else kops.pair_counts
-    out = np.empty((len(specs), 3, a.shape[0]), np.int64)
-    for qi, (rois, ta, tb) in enumerate(specs):
-        trio = kernel(a, b, _to(np.asarray(rois, np.int32), a.device), ta, tb)
-        out[qi] = _host(torch.stack(trio))
-    return out
+    where = () if pos_a is None else (pos_a, pos_b)
+    n = a.shape[0] if pos_a is None else pos_a.shape[0]
+    if not specs:
+        return np.empty((0, 3, n), np.int64)
+    outs = [torch.stack(kernel(a, b, cuda_lib.to_card(
+        np.asarray(rois, np.int32), a.device), ta, tb, *where))
+            for rois, ta, tb in specs]
+    return _host(torch.stack(outs)).astype(np.int64)
 
 
 class _KthValueMixin:
@@ -538,10 +539,12 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
 
     def _fused_verify_batch(self, ctx, batch, pos, rois_q, lvs, uvs,
                             decided, lb):
-        return _host(_device_fused_verify(
-            self._masks, _to(np.asarray(pos, np.int64), self.device),
-            _to(rois_q, self.device), lvs, uvs, _to(decided, self.device),
-            _to(lb, self.device)))
+        # The megakernel reads the batch's rows of the resident words in
+        # place (no gather); its host operands reach the card in one staged
+        # copy.
+        return _host(kops.fused_bounds_verify(
+            self._masks, rois_q, lvs, uvs, decided, lb,
+            np.asarray(pos, np.int64)))
 
     def topk_candidates(self, lb, ub, k, desc, definite, possible):
         if k <= 0 or int(np.count_nonzero(definite)) < k:
@@ -570,14 +573,18 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
         return self._multi_counts(positions, *spec_arrays(specs))
 
     def fused_pair_counts(self, store, pos_a, pos_b, specs):
-        # Both roles are resident (the store's one mask tensor): gather each
-        # role once and answer every descriptor against the gathered batch
-        # — zero metered bytes, two gathers whatever Q is.
-        a = self._masks.index_select(
-            0, _to(np.asarray(pos_a, np.int64), self.device))
-        b = self._masks.index_select(
-            0, _to(np.asarray(pos_b, np.int64), self.device))
-        return _pair_passes(a, b, specs, self._packed)
+        # Both roles are resident (the store's one mask tensor), so zero
+        # metered bytes: packed words are read in place through the two
+        # position lists; float masks gather each role once, whatever Q is.
+        pos = cuda_lib.to_card(np.stack([np.asarray(pos_a, np.int64),
+                                         np.asarray(pos_b, np.int64)]),
+                               self.device)
+        if self._packed:
+            return _pair_passes(self._masks, self._masks, specs, True,
+                                pos[0], pos[1])
+        return _pair_passes(self._masks.index_select(0, pos[0]),
+                            self._masks.index_select(0, pos[1]), specs,
+                            False)
 
 
 # ---------------------------------------------------------------------------

@@ -98,9 +98,7 @@ def cp_count_multi_cuda(masks: torch.Tensor, rois, lvs, uvs, positions=None):
     if q == 0 or b == 0 or h == 0 or w == 0:
         return torch.zeros((q, b), dtype=torch.int32, device=dev), 0
     out = torch.empty((q, b), dtype=torch.int32, device=dev)
-    # one pinned, non-blocking copy: a copy from pageable memory would wait
-    # for every launch queued before it
-    thr = thr.pin_memory().to(dev, non_blocking=True)
+    thr = cuda_lib.to_card(thr.numpy(), dev)
     rc = _lib().cp_count_multi_launch(
         masks.data_ptr(), cuda_lib.DTYPE_CODES[masks.dtype], pos_ptr, n,
         rois.data_ptr(), thr.data_ptr(), q, b, h, w,

@@ -16,20 +16,54 @@
 // Bound: one read of the words of the ROI rows (a 224x224 mask is 224 x 7
 // words = 6,272 B) over 3.35 TB/s, against one popcount per word and
 // counted descriptor at 16 per clock per SM (compute capability 9.0).
-// For the main path's batches both are a few microseconds.
+// For the main path's batches both are a few microseconds.  A 224-wide
+// row is 28 B, so the 32-byte sectors under a box's 3-4 words of each row
+// cover nearly the whole span of its rows: the sector floor is about twice
+// the word bound.
 //
-// Design.  One warp owns one mask (one group for MASK_AGG) and walks its
-// ROI rows in a loop; it reduces with __reduce_add_sync and lane 0 writes
-// each output once, so there are no atomics and no zeroing memset.  Only
-// the words the ROI touches are read: its nk = ceil(c1/32) - floor(c0/32)
-// words of a row are spread over min(nk, 32) lanes, and 32 / min(nk, 32)
-// rows go per step (a full 224-wide row: 28 lanes, 4 rows, 112 contiguous
-// bytes; a 3-word object box: 30 lanes, 10 rows).  Each lane keeps one word
-// column, so it builds that column's span mask once per descriptor, in a
-// register, not per row, and walks the column with four independent loads
-// in flight (two rows of S loads each for MASK_AGG), unrolled by hand.  Q
-// descriptors re-read the mask's rows from L1 (6 KB), so the words come
-// from device memory once; Q and S are runtime arguments.
+// Design of the single-pass kernels (cp_packed_kern, cp_multi_packed_kern,
+// agg_packed_kern).  One warp owns one mask (one group for MASK_AGG) and
+// walks its ROI rows in a loop; it reduces with __reduce_add_sync and lane
+// 0 writes each output once, so there are no atomics and no zeroing
+// memset.  Only the words the ROI touches are read: its nk = ceil(c1/32) -
+// floor(c0/32) words of a row are spread over min(nk, 32) lanes, and
+// 32 / min(nk, 32) rows go per step (a full 224-wide row: 28 lanes, 4 rows,
+// 112 contiguous bytes; a 3-word object box: 30 lanes, 10 rows).  Each lane
+// keeps one word column, so it builds that column's span mask once per
+// descriptor, in a register, not per row, and walks the column with four
+// independent loads in flight (two rows of S loads each for MASK_AGG),
+// unrolled by hand.  Q descriptors re-read the mask's rows from L1 (6 KB),
+// so the words come from device memory once; Q and S are runtime arguments.
+//
+// Design of fused_verify_kern (the verification batch of a packed query,
+// a few hundred masks).  A warp per mask left 43 of 132 SMs idle at 708
+// masks and waited on load latency, one descriptor after another.  Here a
+// block of 128 threads owns one mask, read in place from the resident
+// (N, H, nw) array through an optional position list (no gather).  A first
+// pass, a thread per descriptor, writes the CHI-decided entries (lb) and
+// the empty ones (0) and takes the union of the counted descriptors' rows;
+// a mask whose entries are all decided stops there and reads no word.
+// Otherwise the block copies the words of those rows, one contiguous range
+// (at most 6,272 B at 224x224), into shared memory with 16-byte cp.async
+// (a word-by-word copy where the plane is not 16-byte aligned), and its
+// warps count the descriptors from there, q = warp, warp + 4, ...  Every
+// sector is read from memory once whatever Q is, and each (q, b) is
+// written once.  A plane over 48 KB is counted from device memory directly.
+// The wrapper stages every small input (flags, ROIs, decided, lb,
+// positions) in one pinned buffer and one copy.
+//
+// Design of pair_packed_kern (8,192 pairs on the naive scan).  A warp per
+// pair on the box's word columns, as the single-pass kernels (two rows a
+// step, four loads in flight), each mask read in place through an
+// optional position list, so a device round gathers nothing.  The kernel
+// waits on load latency, so it asks for 8 blocks an SM (32 registers, all
+// 64 warps resident): left to the compiler, the position logic takes it
+// past 32 registers and indexed calls ran 1.37x slower.  A box of 3-4 words
+// a row already touches nearly every 32-byte sector of its row span (a
+// 224-wide row is 28 B), so the kernel runs near the sector floor of this
+// layout; a body streaming the whole row span with 16-byte loads measured
+// slower (benchmarks/chip_kernel_ab.py keeps both as variants).  The lever
+// left is the layout: column-major words.
 //
 // The CP range test on binary values is two flags computed on the host
 // from float32 lv/uv (f1 = lv <= 1 < uv, f0 = lv <= 0 < uv), and the count
@@ -38,13 +72,14 @@
 // popcount of the span masks, as in the JAX kernel, which counts the bits
 // past W for a ROI that was not clipped to W.  MASK_AGG and the pair counts
 // threshold with the effective word (t < 1 ? w : 0) | (t < 0 ? ~w : 0); the
-// complement's tail bits are removed by the same span masks.  A pair reads
-// the same word of both masks (two loads per row step, four in flight) and
+// complement's tail bits are removed by the same span masks.  A pair
 // counts three popcounts: ea & eb, ea | eb and ea & ~eb (|A∖B|, role A
 // first).
 #include "common.cuh"
 
 constexpr int kWarps = 8;  // warps per block, one mask (or group) each
+constexpr int kVerifyThreads = 128;         // fused_verify_kern: a block a mask
+constexpr int kStageBytes = 48 * 1024;      // largest plane staged in shared
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -75,6 +110,28 @@ __device__ __forceinline__ Roi clip_roi(const int* __restrict__ roi, int H,
              clampi(roi[2], 0, H), clampi(roi[3], 0, w32)};
 }
 
+// Mask b's plane: row positions[b] of the (N, H, nw) array, or row b
+// without positions.  A position outside [0, N) traps, as an index out of
+// range asserts.
+__device__ __forceinline__ const unsigned* plane_of(
+    const unsigned* __restrict__ words, const long long* __restrict__ positions,
+    long long N, int b, size_t plane) {
+  long long row = b;
+  if (positions != nullptr) {
+    row = positions[b];
+    if (row < 0 || row >= N) __trap();
+  }
+  return words + (size_t)row * plane;
+}
+
+// A word of a plane in device memory (read-only path), or of its copy in
+// shared memory.
+template <bool kStaged>
+__device__ __forceinline__ unsigned word_at(const unsigned* p) {
+  if constexpr (kStaged) return *p;
+  else return __ldg(p);
+}
+
 // Which of a non-empty ROI's words and rows this lane reads: words
 // k, k + lpr, ... below kend, rows r0 + rsub, r0 + rsub + rps, ...
 struct Lane {
@@ -95,36 +152,43 @@ __device__ __forceinline__ Lane lane_of(const Roi& r) {
   return g;
 }
 
-// Set bits under span of the words of column k in rows row0, row0 + step,
-// ... below row1 of mask m, four independent loads in flight.
-__device__ __forceinline__ int column_ones(const unsigned* __restrict__ m,
-                                           int nw, int k, int row0, int row1,
-                                           int step, unsigned span) {
+// Set bits under span of one word column in rows row0, row0 + step, ...
+// below row1, p at the word of row0; four independent loads in flight.
+template <bool kStaged>
+__device__ __forceinline__ int column_ones(const unsigned* p, int nw,
+                                           int row0, int row1, int step,
+                                           unsigned span) {
   const size_t stride = (size_t)step * nw;
-  const unsigned* p = m + (size_t)row0 * nw + k;
   int ones = 0, row = row0;
   for (; row + 3 * step < row1; row += 4 * step, p += 4 * stride)
-    ones += __popc(__ldg(p) & span) + __popc(__ldg(p + stride) & span) +
-            __popc(__ldg(p + 2 * stride) & span) +
-            __popc(__ldg(p + 3 * stride) & span);
-  for (; row < row1; row += step, p += stride) ones += __popc(__ldg(p) & span);
+    ones += __popc(word_at<kStaged>(p) & span) +
+            __popc(word_at<kStaged>(p + stride) & span) +
+            __popc(word_at<kStaged>(p + 2 * stride) & span) +
+            __popc(word_at<kStaged>(p + 3 * stride) & span);
+  for (; row < row1; row += step, p += stride)
+    ones += __popc(word_at<kStaged>(p) & span);
   return ones;
 }
 
 // The shared body: one descriptor's exact CP count over one mask, valid in
-// every lane.  All 32 lanes of the warp must call it.
+// every lane.  All 32 lanes of the warp must call it.  Word (row, k) of the
+// mask is m[row * nw + k - base]: the plane in device memory (base 0), or
+// its rows staged in shared memory from plane word base on.
+template <bool kStaged = false>
 __device__ __forceinline__ int cp_desc_count(const unsigned* __restrict__ m,
                                              int H, int nw,
                                              const int* __restrict__ roi,
-                                             int f1, int f0) {
+                                             int f1, int f0, int base = 0) {
   const Roi r = clip_roi(roi, H, nw);
   const int area = r.area();
   int ones = 0;
   if (area > 0 && (f1 | f0)) {
     const Lane g = lane_of(r);
+    const int row0 = r.r0 + g.rsub;
     for (int k = g.active ? g.k : g.kend; k < g.kend; k += g.lpr)
-      ones += column_ones(m, nw, k, r.r0 + g.rsub, r.r1, g.rps,
-                          span_mask(r.c0, r.c1, k));
+      ones += column_ones<kStaged>(m + ((size_t)row0 * nw + k - base), nw,
+                                   row0, r.r1, g.rps,
+                                   span_mask(r.c0, r.c1, k));
   }
   ones = __reduce_add_sync(0xffffffffu, ones);
   return f1 * ones + f0 * (area - ones);
@@ -162,26 +226,83 @@ cp_multi_packed_kern(const unsigned* __restrict__ words,  // (B, H, nw)
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-fused_verify_kern(const unsigned* __restrict__ words,  // (B, H, nw)
-                  const int* __restrict__ rois,        // (Q, B, 4)
-                  const int* __restrict__ flags,       // (Q, 2)
-                  const int* __restrict__ decided,     // (Q, B) 0/1
-                  const int* __restrict__ lb,          // (Q, B)
-                  int Q, int B, int H, int nw,
-                  int* __restrict__ out) {             // (Q, B)
-  const int b = warp_item();
-  if (b >= B) return;
-  const unsigned* m = words + (size_t)b * H * nw;
-  for (int q = 0; q < Q; ++q) {
+// 16-byte asynchronous copy from device to shared memory; both addresses
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// staged: the plane fits kStageBytes, so a mask's rows are copied to
+// shared memory once; vec: planes start on 16-byte boundaries (the array
+// does, and H * nw is a multiple of 4), so the copy moves 16-byte pieces.
+__global__ void __launch_bounds__(kVerifyThreads)
+fused_verify_kern(const unsigned* __restrict__ words,      // (N, H, nw)
+                  const long long* __restrict__ positions,  // (B,) or null
+                  long long N,
+                  const int* __restrict__ flags,    // (Q, 2)
+                  const int* __restrict__ rois,     // (Q, B, 4)
+                  const int* __restrict__ decided,  // (Q, B) 0/1
+                  const int* __restrict__ lb,       // (Q, B)
+                  int Q, int B, int H, int nw, int staged, int vec,
+                  int* __restrict__ out) {          // (Q, B)
+  extern __shared__ __align__(16) unsigned stage[];
+  __shared__ int rows[2];  // union [r0, r1) of the counted descriptors' rows
+  const int b = blockIdx.x;
+  const unsigned* m = plane_of(words, positions, N, b, (size_t)H * nw);
+  if (threadIdx.x == 0) {
+    rows[0] = H;
+    rows[1] = 0;
+  }
+  __syncthreads();
+  // pass 1, a thread per descriptor: decided entries pass their CHI bound
+  // through, empty ones count 0, the rest widen the row union
+  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
     const size_t i = (size_t)q * B + b;
-    if (decided[i]) {  // the CHI bound is exact: pass it through uncounted
-      if ((threadIdx.x & 31) == 0) out[i] = lb[i];
-      continue;
+    const Roi r = clip_roi(rois + 4 * i, H, nw);
+    const bool counted = r.area() > 0 && (flags[2 * q] | flags[2 * q + 1]);
+    const int dec = decided[i];
+    if (dec) out[i] = lb[i];
+    else if (!counted) out[i] = 0;
+    if (counted && !dec) {
+      atomicMin(&rows[0], r.r0);
+      atomicMax(&rows[1], r.r1);
     }
-    const int c = cp_desc_count(m, H, nw, rois + 4 * i, flags[2 * q],
-                                flags[2 * q + 1]);
-    if ((threadIdx.x & 31) == 0) out[i] = c;
+  }
+  __syncthreads();
+  const int R0 = rows[0], R1 = rows[1];
+  if (R0 >= R1) return;  // every entry decided or empty: no word is read
+  int a0 = R0 * nw;
+  if (staged) {
+    int a1 = R1 * nw;
+    if (vec) {  // rounded out to 16 bytes, still inside the plane
+      a0 &= ~3;
+      a1 = (a1 + 3) & ~3;
+      for (int i = a0 + 4 * (int)threadIdx.x; i < a1; i += 4 * blockDim.x)
+        cp_async16(stage + (i - a0), m + i);
+      cp_async_wait_all();
+    } else {
+      for (int i = a0 + (int)threadIdx.x; i < a1; i += blockDim.x)
+        stage[i - a0] = __ldg(m + i);
+    }
+    __syncthreads();
+  }
+  // pass 2, a warp per counted descriptor
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < Q; q += blockDim.x >> 5) {
+    const size_t i = (size_t)q * B + b;
+    const int f1 = flags[2 * q], f0 = flags[2 * q + 1];
+    const Roi r = clip_roi(rois + 4 * i, H, nw);
+    if (decided[i] || r.area() <= 0 || !(f1 | f0)) continue;  // warp-uniform
+    const int c = staged ? cp_desc_count<true>(stage, H, nw, rois + 4 * i,
+                                               f1, f0, a0)
+                         : cp_desc_count(m, H, nw, rois + 4 * i, f1, f0);
+    if (lane == 0) out[i] = c;
   }
 }
 
@@ -233,22 +354,28 @@ agg_packed_kern(const unsigned* __restrict__ words,  // (N, S, H, nw)
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-pair_packed_kern(const unsigned* __restrict__ words_a,  // (B, H, nw)
-                 const unsigned* __restrict__ words_b,  // (B, H, nw)
-                 const int* __restrict__ rois,          // (B, 4)
+__global__ void __launch_bounds__(kWarps * 32, 8)
+pair_packed_kern(const unsigned* __restrict__ words_a,   // (Na, H, nw)
+                 const long long* __restrict__ pos_a,    // (B,) or null
+                 long long Na,
+                 const unsigned* __restrict__ words_b,   // (Nb, H, nw)
+                 const long long* __restrict__ pos_b,    // (B,) or null
+                 long long Nb,
+                 const int* __restrict__ rois,           // (B, 4)
                  int fa1, int fa0, int fb1, int fb0, int B, int H, int nw,
-                 int* __restrict__ out) {               // (3, B)
+                 int* __restrict__ out) {                // (3, B)
   const int p = warp_item();
   if (p >= B) return;
+  const size_t plane = (size_t)H * nw;
+  const unsigned* ma = plane_of(words_a, pos_a, Na, p, plane);
+  const unsigned* mb = plane_of(words_b, pos_b, Nb, p, plane);
   const Roi r = clip_roi(rois + 4 * (size_t)p, H, nw);
-  const size_t base = (size_t)p * H * nw;
   const unsigned keep_a = fa1 ? 0xffffffffu : 0u;  // (ta < 1 ? w : 0)
   const unsigned flip_a = fa0 ? 0xffffffffu : 0u;  // (ta < 0 ? ~w : 0)
   const unsigned keep_b = fb1 ? 0xffffffffu : 0u;
   const unsigned flip_b = fb0 ? 0xffffffffu : 0u;
   int ci = 0, cu = 0, cd = 0;
-  if (r.area() > 0) {
+  if (r.area() > 0) {  // lanes on the box's word columns, two rows a step
     const Lane g = lane_of(r);
     const size_t stride = (size_t)g.rps * nw;
     for (int k = g.active ? g.k : g.kend; k < g.kend; k += g.lpr) {
@@ -256,10 +383,10 @@ pair_packed_kern(const unsigned* __restrict__ words_a,  // (B, H, nw)
       int row = r.r0 + g.rsub;
       for (; row < r.r1; row += 2 * g.rps) {
         const bool two = row + g.rps < r.r1;
-        const size_t off = base + (size_t)row * nw + k;
-        const unsigned a0 = __ldg(words_a + off), b0 = __ldg(words_b + off);
-        const unsigned a1 = two ? __ldg(words_a + off + stride) : 0u;
-        const unsigned b1 = two ? __ldg(words_b + off + stride) : 0u;
+        const size_t off = (size_t)row * nw + k;
+        const unsigned a0 = __ldg(ma + off), b0 = __ldg(mb + off);
+        const unsigned a1 = two ? __ldg(ma + off + stride) : 0u;
+        const unsigned b1 = two ? __ldg(mb + off + stride) : 0u;
         const unsigned s1 = two ? span : 0u;
         const unsigned ea0 = (a0 & keep_a) | (~a0 & flip_a);
         const unsigned eb0 = (b0 & keep_b) | (~b0 & flip_b);
@@ -281,8 +408,16 @@ pair_packed_kern(const unsigned* __restrict__ words_a,  // (B, H, nw)
   }
 }
 
+// No work: its launch is the floor under every small call above.
+__global__ void empty_kern() {}
+
 static inline unsigned blocks_for(int items) {
   return (unsigned)((items + kWarps - 1) / kWarps);
+}
+
+// Whether a (., H, nw) array at p has every plane on a 16-byte boundary.
+static inline bool planes_aligned(const void* p, int H, int nw) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (size_t)H * nw % 4 == 0;
 }
 
 extern "C" int cp_packed_launch(const void* words, const void* rois, int f1,
@@ -305,15 +440,23 @@ extern "C" int cp_multi_packed_launch(const void* words, const void* rois,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fused_verify_launch(const void* words, const void* rois,
-                                   const void* flags, const void* decided,
+// Q descriptors over B masks: mask b is row positions[b] of the (N, H, nw)
+// array, or row b when positions is null.  Every entry of out is written.
+extern "C" int fused_verify_launch(const void* words, const void* positions,
+                                   long long N, const void* flags,
+                                   const void* rois, const void* decided,
                                    const void* lb, int Q, int B, int H,
                                    int nw, void* out, void* stream) {
-  fused_verify_kern<<<blocks_for(B), kWarps * 32, 0,
+  const size_t plane_bytes = (size_t)H * nw * 4;
+  const int staged = plane_bytes <= (size_t)kStageBytes;
+  const int vec = planes_aligned(words, H, nw);
+  fused_verify_kern<<<B, kVerifyThreads, staged ? plane_bytes : 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(words), static_cast<const int*>(rois),
-      static_cast<const int*>(flags), static_cast<const int*>(decided),
-      static_cast<const int*>(lb), Q, B, H, nw, static_cast<int*>(out));
+      static_cast<const unsigned*>(words),
+      static_cast<const long long*>(positions), N,
+      static_cast<const int*>(flags), static_cast<const int*>(rois),
+      static_cast<const int*>(decided), static_cast<const int*>(lb), Q, B, H,
+      nw, staged, vec, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -327,14 +470,25 @@ extern "C" int agg_packed_launch(const void* words, const void* rois, int f1,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int pair_packed_launch(const void* words_a, const void* words_b,
+// B pairs: pair p is (row pos_a[p] of words_a, row pos_b[p] of words_b),
+// each row p of its array where its positions are null.
+extern "C" int pair_packed_launch(const void* words_a, const void* pos_a,
+                                  long long Na, const void* words_b,
+                                  const void* pos_b, long long Nb,
                                   const void* rois, int fa1, int fa0, int fb1,
                                   int fb0, int B, int H, int nw, void* out,
                                   void* stream) {
   pair_packed_kern<<<blocks_for(B), kWarps * 32, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(words_a),
-      static_cast<const unsigned*>(words_b), static_cast<const int*>(rois),
+      static_cast<const long long*>(pos_a), Na,
+      static_cast<const unsigned*>(words_b),
+      static_cast<const long long*>(pos_b), Nb, static_cast<const int*>(rois),
       fa1, fa0, fb1, fb0, B, H, nw, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int empty_launch(void* stream) {
+  empty_kern<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,6 +26,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..obs.metrics import REGISTRY as _REG
@@ -173,6 +174,36 @@ def int32_rows(x, device, shape, what: str = "rois") -> torch.Tensor:
         raise ValueError(f"{what} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     return t
+
+
+def stage(parts, device):
+    """Small host arrays → one pinned buffer → one non-blocking copy to
+    ``device`` (a copy from pageable memory would wait for every launch
+    queued before it).  Returns the flat int32 copy on the card (keep it
+    referenced until the launch that reads it is queued) and each part's
+    device address in it.  The buffer comes from PyTorch's caching host
+    allocator, which hands it out again only after the copy has finished.
+    Parts are 4- or 8-byte types; an 8-byte part goes first, so it stays
+    8-byte aligned."""
+    flat = [np.ascontiguousarray(a).reshape(-1).view(np.int32) for a in parts]
+    sizes = [f.size for f in flat]
+    buf = torch.empty(sum(sizes), dtype=torch.int32, pin_memory=True)
+    np.concatenate(flat, out=buf.numpy())
+    card = buf.to(device, non_blocking=True)
+    base = card.data_ptr()
+    return card, [base + 4 * int(at) for at in np.cumsum([0] + sizes[:-1])]
+
+
+def to_card(arr, device) -> torch.Tensor:
+    """One small host array as a tensor of its dtype and shape on
+    ``device``: by :func:`stage`'s copy to a CUDA device, a plain copy to
+    any other."""
+    a = np.ascontiguousarray(arr)
+    t = torch.from_numpy(a)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    card, _ = stage([a], device)
+    return card.view(t.dtype).reshape(a.shape)
 
 
 def in_dtype(x, dtype) -> float:

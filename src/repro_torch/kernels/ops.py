@@ -116,13 +116,16 @@ pair_counts_packed = Kernel(
     "pair_counts_packed", ref.pair_counts_packed_ref, pair_counts_packed_cuda,
     "Dual-mask pair counts on packed words — (B,H,words) x 2, (B,4), ta, tb "
     "→ (inter, union, diff) int32, equal to pair_counts on the same binary "
-    "masks.")
+    "masks; with pos_a, pos_b (B,) over (N,H,words) arrays, each role's "
+    "masks read in place on the card.")
 fused_bounds_verify = Kernel(
     "fused_bounds_verify", ref.fused_bounds_verify_ref,
     fused_bounds_verify_cuda,
     "Bounds+verify megakernel — (B,H,words), (Q,B,4), (Q,), (Q,), decided "
     "(Q,B), lb (Q,B) → (Q,B) int32: decided entries pass lb through, the "
-    "rest are counted.  One launch per verification batch.")
+    "rest are counted.  One launch per verification batch; with positions "
+    "(B,) over an (N,H,words) array, the batch packed[positions], read in "
+    "place on the card.")
 
 KERNELS = (cp_count, cp_count_multi, chi_cell_hist, mask_agg_counts,
            pair_counts, cp_count_packed, cp_count_multi_packed,

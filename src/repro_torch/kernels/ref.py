@@ -34,6 +34,14 @@ def _rois(rois, t: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(rois).to(device=t.device, dtype=torch.int32)
 
 
+def _gather(x: torch.Tensor, positions) -> torch.Tensor:
+    """``x[positions]`` over the leading axis, or ``x`` without positions."""
+    if positions is None:
+        return x
+    return x[torch.as_tensor(positions, dtype=torch.int64).reshape(-1).to(
+        x.device)]
+
+
 def cp_count_ref(masks: torch.Tensor, rois, lv, uv) -> torch.Tensor:
     """(B, H, W), (B, 4), scalars → (B,) int32 — exact CP."""
     _, h, w = masks.shape
@@ -48,9 +56,7 @@ def cp_count_multi_ref(masks: torch.Tensor, rois, lvs, uvs,
     CP pass (one read of the mask bytes answers Q descriptors).  With
     ``positions`` (B,), the batch is ``masks[positions]`` of an (N, H, W)
     array."""
-    if positions is not None:
-        masks = masks[torch.as_tensor(positions, dtype=torch.int64).reshape(
-            -1).to(masks.device)]
+    masks = _gather(masks, positions)
     rois = _rois(rois, masks)
     lvs = torch.as_tensor(lvs).reshape(-1)
     uvs = torch.as_tensor(uvs).reshape(-1)
@@ -257,10 +263,13 @@ def mask_agg_counts_packed_ref(group_packed: torch.Tensor, rois, thresh):
 
 
 def fused_bounds_verify_ref(packed: torch.Tensor, rois, lvs, uvs, decided,
-                            lb) -> torch.Tensor:
+                            lb, positions=None) -> torch.Tensor:
     """The bounds+verify megakernel: (B, H, words), (Q, B, 4), (Q,), (Q,),
     decided (Q, B) 0/1, lb (Q, B) → (Q, B) int32.  Decided entries pass
-    their CHI bound through; the rest are counted from the words."""
+    their CHI bound through; the rest are counted from the words.  With
+    ``positions`` (B,), the batch is ``packed[positions]`` of an
+    (N, H, words) array."""
+    packed = _gather(packed, positions)
     counts = cp_count_multi_packed_ref(packed, rois, lvs, uvs)
     dev = packed.device
     decided = torch.as_tensor(decided).to(dev)
@@ -269,12 +278,15 @@ def fused_bounds_verify_ref(packed: torch.Tensor, rois, lvs, uvs, decided,
 
 
 def pair_counts_packed_ref(packed_a: torch.Tensor, packed_b: torch.Tensor,
-                           rois, ta, tb):
+                           rois, ta, tb, pos_a=None, pos_b=None):
     """(B, H, words) x 2 int32 bit views, (B, 4), ta, tb → (inter, union,
     diff) each (B,) int32: set bits of ea & eb, ea | eb and ea & ~eb inside
     each ROI, where ``ea``/``eb`` are the effective words of ``value > t``
     (flags from float32-rounded ``ta``/``tb``), equal to
-    ``pair_counts_ref`` on the unpacked binary masks."""
+    ``pair_counts_ref`` on the unpacked binary masks.  With ``pos_a`` /
+    ``pos_b`` (B,), that role's batch is ``packed[pos]`` of an
+    (N, H, words) array."""
+    packed_a, packed_b = _gather(packed_a, pos_a), _gather(packed_b, pos_b)
     _, h, nw = packed_a.shape
     ea = _effective_word(_words(packed_a), *_thresh_flags(ta))
     eb = _effective_word(_words(packed_b), *_thresh_flags(tb))

@@ -313,6 +313,144 @@ def test_pair_packed_kernel_matches_plain(cuda, shape):
     assert ops.pair_counts_packed.launches == before + len(ts) ** 2
 
 
+def _misaligned(words):
+    """The same words in a copy whose base is one word past a 16-byte
+    boundary: the megakernel stages such planes word by word."""
+    buf = torch.empty(words.numel() + 1, dtype=words.dtype,
+                      device=words.device)
+    out = buf[1:].view(words.shape)
+    out.copy_(words)
+    return out
+
+
+POSITIONS = (None, "repeat", "unsorted", "empty")
+
+
+def _pos(kind, n, device):
+    """Position lists over n resident masks: none, repeated, out of
+    order, empty."""
+    if kind is None:
+        return None
+    pos = {"repeat": [n - 1, 0, n - 1, 0, 1 % n, 1 % n],
+           "unsorted": list(range(n))[::-1] + [n // 2],
+           "empty": []}[kind]
+    return torch.tensor(pos, dtype=torch.int64, device=device)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_fused_verify_kernel_positions_and_verdicts(cuda, shape, aligned):
+    """With and without positions (repeated, unsorted, empty), verdicts all
+    decided, none and mixed, a mask whose every entry is decided (its
+    output is lb), on aligned and misaligned planes."""
+    words, rois = _packed_inputs(shape, 21, cuda)
+    if not aligned:
+        words = _misaligned(words)
+    n = shape[0]
+    rng = np.random.default_rng(22)
+    lvs = np.float32([0.5, -0.5, 0.0, 1.0])
+    uvs = np.float32([1.5, 0.5, 3.4e38, 1.5])
+    for kind in POSITIONS:
+        pos = _pos(kind, n, cuda)
+        b = n if pos is None else len(pos)
+        rois_q = torch.stack([rois, rois.flip(0), rois, rois])
+        rois_q = rois_q if pos is None else rois_q[:, pos]
+        lb = rng.integers(0, 1000, (4, b)).astype(np.int32)
+        mixed = rng.random((4, b)) < 0.5
+        if b:
+            mixed[:, 0] = True      # every entry of mask 0 decided
+            mixed[:, -1] = False
+        for dec in (mixed, np.ones((4, b), bool), np.zeros((4, b), bool)):
+            dec = dec.astype(np.int32)
+            before = ops.fused_bounds_verify.launches
+            got = ops.fused_bounds_verify(words, rois_q, lvs, uvs, dec, lb,
+                                          pos)
+            _eq(got, ref.fused_bounds_verify_ref(words, rois_q, lvs, uvs,
+                                                 dec, lb, pos))
+            assert ops.fused_bounds_verify.launches == before + (b > 0)
+            if b:   # the entries of mask 0 that are decided read lb
+                sel = dec[:, 0] == 1
+                np.testing.assert_array_equal(got[:, 0].cpu().numpy()[sel],
+                                              lb[sel, 0])
+
+
+@pytest.mark.parametrize("b", [1, 7, 708, 4000])
+def test_fused_verify_kernel_batch_sizes(cuda, b):
+    """B from one mask to several thousand positions over a resident
+    224x224 array (every block writes its entries once into an output
+    that is never zeroed), and the same batch gathered."""
+    from repro_torch.core.packing import pack_masks
+    n, h, w = 300, 224, 224
+    rng = np.random.default_rng(b)
+    words = torch.from_numpy(pack_masks(rng.random((n, h, w)) < 0.4).view(
+        np.int32)).to(cuda)
+    pos = torch.from_numpy(rng.integers(0, n, b)).to(cuda)
+    boxes = object_boxes(b, h, w, seed=b)
+    rois_q = torch.from_numpy(np.stack([boxes, np.tile([3, 5, 221, 223],
+                                                       (b, 1))]).astype(
+        np.int32))
+    lvs, uvs = np.float32([0.5, 0.0]), np.float32([1.5, 1.0])
+    dec = (rng.random((2, b)) < 0.3).astype(np.int32)
+    lb = rng.integers(0, 1000, (2, b)).astype(np.int32)
+    want = ref.fused_bounds_verify_ref(words, rois_q, lvs, uvs, dec, lb, pos)
+    _eq(ops.fused_bounds_verify(words, rois_q, lvs, uvs, dec, lb, pos), want)
+    _eq(ops.fused_bounds_verify(words[pos].contiguous(), rois_q, lvs, uvs,
+                                dec, lb), want)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_pair_packed_kernel_positions(cuda, shape, aligned):
+    """Each role read in place through its positions (repeated, unsorted,
+    empty; one role indexed, the other as given), on aligned and
+    misaligned planes."""
+    a, rois = _packed_inputs(shape, 30, cuda)
+    b, _ = _packed_inputs(shape, 31, cuda)
+    if not aligned:
+        a, b = _misaligned(a), _misaligned(b)
+    n = shape[0]
+    for kind in POSITIONS[1:]:
+        pa = _pos(kind, n, cuda)
+        pb = pa.flip(0)
+        r = rois[pa.cpu() % n] if len(pa) else rois[:0]
+        for ta, tb in ((0.5, 0.5), (-0.5, 1.0), (0.0, -0.5)):
+            for got, want in zip(
+                    ops.pair_counts_packed(a, b, r, ta, tb, pa, pb),
+                    ref.pair_counts_packed_ref(a, b, r, ta, tb, pa, pb)):
+                _eq(got, want)
+    pa = _pos("unsorted", n, cuda)[:n]
+    for got, want in zip(
+            ops.pair_counts_packed(a, b, rois, 0.5, 0.5, pa, None),
+            ref.pair_counts_packed_ref(a, b, rois, 0.5, 0.5, pa, None)):
+        _eq(got, want)
+
+
+def test_pair_packed_kernel_large_batch(cuda):
+    """8,192 object-box pairs over 256 resident 224x224 masks, indexed and
+    gathered, at the main path's shape."""
+    from repro_torch.core.packing import pack_masks
+    n, h, w, b = 256, 224, 224, 8192
+    rng = np.random.default_rng(9)
+    words = torch.from_numpy(pack_masks(rng.random((n, h, w)) < 0.4).view(
+        np.int32)).to(cuda)
+    pa = torch.from_numpy(rng.integers(0, n, b)).to(cuda)
+    pb = torch.from_numpy(rng.integers(0, n, b)).to(cuda)
+    rois = torch.from_numpy(object_boxes(b, h, w, seed=4)).to(cuda)
+    want = ref.pair_counts_packed_ref(words, words, rois, 0.6, 0.6, pa, pb)
+    for got, wnt in zip(ops.pair_counts_packed(words, words, rois, 0.6, 0.6,
+                                               pa, pb), want):
+        _eq(got, wnt)
+    for got, wnt in zip(ops.pair_counts_packed(words[pa], words[pb], rois,
+                                               0.6, 0.6), want):
+        _eq(got, wnt)
+
+
+def test_empty_kernel_launches(cuda):
+    from repro_torch.kernels import popcount
+    popcount.empty_launch(cuda)
+    torch.cuda.synchronize()
+
+
 def test_popcount_kernels_refuse_other_word_types(cuda):
     m, rois = _packed_inputs((2, 8, 40), 1, cuda)
     with pytest.raises(TypeError):

@@ -143,6 +143,52 @@ def test_fused_bounds_verify_matches_jax(w, pattern):
                                          jnp.asarray(lb)))
 
 
+# positions into the resident words: repeated (an unclipped ROI's row 2
+# among them), out of order, none
+POSITIONS = {"repeat": [5, 0, 5, 2, 23, 23, 2],
+             "unsorted": [23, 7, 1, 16, 2, 9, 0],
+             "empty": []}
+
+
+@pytest.mark.parametrize("pattern", ["random", "all", "none"])
+@pytest.mark.parametrize("pos", list(POSITIONS))
+@pytest.mark.parametrize("w", (33, 40))
+def test_fused_bounds_verify_positions_match_jax(w, pos, pattern):
+    """The megakernel's plain version reading ``packed[positions]`` equals
+    the JAX reference on the gathered rows (unclipped ROIs included) and,
+    for W = 40, the Pallas kernel in interpret mode on clipped ROIs."""
+    q = 3
+    packed = pack_masks(_binary((B, H, w), seed=13 * w))
+    positions = np.asarray(POSITIONS[pos], np.int64)
+    b = len(positions)
+    rois = np.stack([_edge_rois(B, H, w, seed=60 + i)[positions]
+                     for i in range(q)])
+    lvs = np.asarray([0.5, -0.5, 0.0], np.float32)
+    uvs = np.asarray([1.5, 0.5, 1.0], np.float32)
+    rng = np.random.default_rng(w + b)
+    decided = {"random": rng.random((q, b)) < 0.5,
+               "all": np.ones((q, b), bool),
+               "none": np.zeros((q, b), bool)}[pattern].astype(np.int32)
+    lb = rng.integers(0, 1000, (q, b)).astype(np.int32)
+    got = ops.fused_bounds_verify(_words(packed), rois, lvs, uvs, decided, lb,
+                                  positions)
+    assert got.dtype == torch.int32 and got.shape == (q, b)
+    if not b:
+        return
+    gathered = jnp.asarray(packed[positions])
+    _eq(got, jpk.fused_verify_packed_ref(gathered, jnp.asarray(rois), lvs,
+                                         uvs, jnp.asarray(decided),
+                                         jnp.asarray(lb)))
+    if w == 40:     # the Pallas tiling needs H to divide into row tiles
+        clipped = np.clip(rois, 0, [H, w, H, w])
+        _eq(ops.fused_bounds_verify(_words(packed), clipped, lvs, uvs,
+                                    decided, lb, positions),
+            jpk.fused_verify_packed_pallas(
+                gathered, jnp.asarray(clipped), jnp.asarray(lvs),
+                jnp.asarray(uvs), jnp.asarray(decided), jnp.asarray(lb),
+                interpret=True))
+
+
 def test_plain_versions_match_pallas_interpret():
     """One case per kernel against the Pallas body in interpret mode (the
     Pallas tiling needs H to divide into row tiles, so W = 40, H = 32)."""
@@ -470,6 +516,40 @@ def test_fused_verify_counts_pass_decided_bounds_through(packed_db):
         _eq(got[terms[0]], np.full(len(batch), 7.0))
         _eq(got[terms[1]], exact[terms[1]])
         _eq(got[terms[2]], exact[terms[2]])
+
+
+def test_device_verification_reads_resident_words_in_place(packed_db,
+                                                           monkeypatch):
+    """The device backend's packed verification step hands the megakernel
+    the resident words with the batch's positions and gathers nothing; the
+    answers stay those of the host backend."""
+    _, t, _, rois = packed_db
+    resident = get_backend(t, "device")._masks
+    seen = []
+    plain = ops.fused_bounds_verify.plain
+
+    def spy(packed, *args):
+        seen.append((packed, args[5] if len(args) > 5 else None))
+        return plain(packed, *args)
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the verification step gathered rows")
+    want = {name: tq.run(SMOKE_SQL[name], t, provided_rois=rois,
+                         backend="host", verify_batch=5)
+            for name in ("packed_filter", "packed_refine")}
+    monkeypatch.setattr(ops.fused_bounds_verify, "plain", spy)
+    monkeypatch.setattr(torch.Tensor, "index_select", no_gather)
+    for name, (wres, _) in want.items():
+        got, stats = tq.run(SMOKE_SQL[name], t, provided_rois=rois,
+                            backend="device", verify_batch=5)
+        _eq(got if not isinstance(got, tuple) else got[0],
+            wres if not isinstance(wres, tuple) else wres[0])
+        assert stats.n_verified > 0
+    monkeypatch.undo()
+    assert seen
+    for packed, pos in seen:
+        assert packed is resident and pos is not None
+        assert pos.dtype == np.int64 and len(pos) > 0
 
 
 def _dispatches(kernel):

@@ -33,6 +33,7 @@ from repro_torch.core import CHIConfig as TCfg
 from repro_torch.core import MaskStore as TStore
 from repro_torch.core import exprs as tx
 from repro_torch.core import queries as tq
+from repro_torch.core.backend import get_backend
 from repro_torch.core.engine import PairFilterRun, PairTopKRun, TopKRun
 from repro_torch.core.plan import LogicalPlan, run_plan
 from repro_torch.kernels import ops
@@ -150,6 +151,45 @@ def test_pair_counts_packed_plain_matches_jax(w, ta):
                                     torch.from_numpy(pb.view(np.int32)),
                                     clipped, ta, tb),
              ops.pair_counts(_unpack(pa, w), _unpack(pb, w), clipped, ta, tb))
+
+
+# (pos_a, pos_b) into the resident words: repeated, out of order, none
+PAIR_POSITIONS = {"repeat": ([3, 0, 3, 2, 11, 11], [0, 0, 7, 7, 2, 2]),
+                  "unsorted": ([11, 4, 2, 9, 0, 1, 6], [6, 2, 10, 4, 5, 3, 0]),
+                  "empty": ([], [])}
+
+
+@pytest.mark.parametrize("pos", list(PAIR_POSITIONS))
+@pytest.mark.parametrize("w", (33, 40))
+def test_pair_counts_packed_positions_match_jax(w, pos):
+    """The packed pair counts' plain version reading each role in place
+    through its positions equals the JAX reference on the gathered rows,
+    called once per descriptor as a verification pass calls it (unclipped
+    ROIs included), and for W = 40 the Pallas kernel in interpret mode."""
+    n = 12
+    rng = np.random.default_rng(5 * w)
+    pa = pack_masks(rng.random((n, H, w)) < 0.4)
+    pb = pack_masks(rng.random((n, H, w)) < 0.5)
+    pos_a, pos_b = (np.asarray(p, np.int64) for p in PAIR_POSITIONS[pos])
+    b = len(pos_a)
+    wa = torch.from_numpy(pa.view(np.int32))
+    wb = torch.from_numpy(pb.view(np.int32))
+    ja, jb = jnp.asarray(pa[pos_a]), jnp.asarray(pb[pos_b])
+    specs = [(_edge_rois(n, H, w, seed=w + 9)[pos_a], 0.6, 0.6),
+             (np.tile([0, 0, H, 64], (b, 1)), -0.5, 0.5),
+             (_edge_rois(n, H, w, seed=w + 10)[pos_b], 1.0, 0.0)]
+    for rois, ta, tb in specs:
+        rois = rois.astype(np.int32)
+        got = ops.pair_counts_packed(wa, wb, torch.from_numpy(rois), ta, tb,
+                                     pos_a, pos_b)
+        if not b:
+            assert all(g.shape == (0,) for g in got)
+            continue
+        _eq3(got, jpk.pair_counts_packed_ref(ja, jb, jnp.asarray(rois), ta,
+                                             tb))
+        if w == 40:     # the Pallas tiling needs H to divide into row tiles
+            _eq3(got, jpk.pair_counts_packed_pallas(
+                ja, jb, jnp.asarray(rois), ta, tb, interpret=True))
 
 
 def test_pair_plain_versions_take_only_int32_words():
@@ -447,6 +487,39 @@ def test_pair_kernel_one_dispatch_per_spec_per_batch(db, backend):
             n_batches += 1
         assert n_batches >= 2
         assert _dispatches(kernel) - before == specs * n_batches
+
+
+def test_device_pair_step_reads_resident_words_in_place(packed_db,
+                                                       monkeypatch):
+    """On a packed store the device backend's pair step hands the kernel
+    the resident words with both roles' positions and gathers nothing; the
+    answers stay those of the host backend."""
+    _, t, rois = packed_db
+    resident = get_backend(t, "device")._masks
+    seen = []
+    plain = ops.pair_counts_packed.plain
+
+    def spy(a, b, *args):
+        seen.append((a, b) + tuple(args[3:]))
+        return plain(a, b, *args)
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the pair step gathered rows")
+    want = {name: tq.run(SQL[name], t, provided_rois=rois, backend="host")
+            for name in ("pair_iou_topk", "pair_diff_filter")}
+    monkeypatch.setattr(ops.pair_counts_packed, "plain", spy)
+    monkeypatch.setattr(torch.Tensor, "index_select", no_gather)
+    for name, (wres, _) in want.items():
+        got, stats = tq.run(SQL[name], t, provided_rois=rois,
+                            backend="device")
+        _eq(got[0] if isinstance(got, tuple) else got,
+            wres[0] if isinstance(wres, tuple) else wres)
+        assert stats.n_verified > 0
+    monkeypatch.undo()
+    assert seen
+    for a, b, pos_a, pos_b in seen:
+        assert a is resident and b is resident
+        assert len(pos_a) == len(pos_b) > 0
 
 
 def test_pair_runs_refuse_plans_without_pair_terms(float_db):
