@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B timings of the CHI, multi-descriptor CP, bounds+verify and packed
-pair kernels on one GPU.
+"""A/B timings of the CHI, multi-descriptor CP (float and packed),
+bounds+verify and packed pair kernels on one GPU.
 
     python3 benchmarks/chip_kernel_ab.py [--popcount]
 
@@ -16,10 +16,16 @@ banded CHI grid the wrapper picks for it, and against CP blocks that split
 a mask's rows.  The popcount kernels run on the binarised resident masks
 (``> 0.5``, packed): the megakernel on 708 of them, as the packed filter's
 verification batch, with one object-box descriptor and none decided, then
-with three descriptors and half the masks' entries all decided; the pair
-kernel on the pair store's layout (image i as planes 2i and 2i + 1 of
-16,384 resident planes, ``object_boxes(seed=4)`` as the smoke's pair
-boxes), 8,192 images gathered as on the naive scan and indexed, and a
+with three descriptors and half the masks' entries all decided; the
+packed multi-descriptor kernel on 4,096 of 16,384 resident planes (the
+4,096 masks four times; every fourth plane, as the smoke's fused pass
+takes every sixteenth of 65,536), with the scheduler pass's 8 descriptors
+and with its first alone, indexed and gathered: the shipped block per
+mask over staged rows (capped at 32 registers) against the first body's
+warp per mask, direct loads and no register cap, each timed four times
+in turns; the pair kernel on the pair store's layout (image i as planes
+2i and 2i + 1 of 16,384 resident planes, ``object_boxes(seed=4)`` as the
+smoke's pair boxes), 8,192 images gathered as on the naive scan and indexed, and a
 1,115-image device round: the shipped word-column body (capped at 32
 registers), the same without the cap, and a body streaming the box's row
 span in 16-byte vectors, each timed four times in turns.  Every
@@ -107,6 +113,9 @@ CP_VARIANTS = {
 }
 
 
+# The Q-descriptor kernels' rows read from device memory, none staged.
+DIRECT_LOADS = ("  const int staged = plane_bytes <= (size_t)kStageBytes;",
+                "  const int staged = 0;")
 # The first grid of the megakernel: a warp per mask, its descriptors one
 # after another, each from device memory.
 WARP_PER_MASK = """
@@ -138,18 +147,59 @@ FUSED_VARIANTS = {
     "shipped": [],
     "warp per mask (first grid)": [
         ("\n// No work: its launch is the floor", WARP_PER_MASK),
-        ("  fused_verify_kern<<<B, kVerifyThreads, staged ? plane_bytes : 0,\n"
+        ("  fused_verify_kern<<<B, kBlockThreads, st.smem,\n"
          "                      static_cast<cudaStream_t>(stream)>>>(",
          "  fused_verify_warp_kern<<<blocks_for(B), kWarps * 32, 0,\n"
          "                      static_cast<cudaStream_t>(stream)>>>("),
-        ("      nw, staged, vec, static_cast<int*>(out));",
+        ("static_cast<const int*>(lb), Q, B, H,\n"
+         "      nw, st.staged, st.vec, static_cast<int*>(out));",
+         "static_cast<const int*>(lb), Q, B, H,\n"
          "      nw, static_cast<int*>(out));")],
     # every descriptor counted from device memory, no shared copy
-    "direct loads": [("  const int staged = plane_bytes <= (size_t)kStageBytes;",
-                      "  const int staged = 0;")],
+    "direct loads": [DIRECT_LOADS],
     # a mask whose entries are all decided still stages its rows
     "no skip of all-decided masks": [("    if (counted && !dec) {",
                                       "    if (counted) {")],
+}
+# The first cp_count_multi_packed body: a warp per mask, its descriptors
+# one after another, each re-walking the rows from L1 with its own
+# reduction (here reading through positions, as the shipped kernel does).
+WARP_PER_MASK_MULTI = """
+__global__ void __launch_bounds__(kWarps * 32)
+cp_multi_warp_kern(const unsigned* __restrict__ words,
+                   const long long* __restrict__ positions, long long N,
+                   const int* __restrict__ flags,
+                   const int* __restrict__ rois, int Q, int B, int H,
+                   int nw, int* __restrict__ out) {
+  const int b = warp_item();
+  if (b >= B) return;
+  const unsigned* m = plane_of(words, positions, N, b, (size_t)H * nw);
+  for (int q = 0; q < Q; ++q) {
+    const size_t i = (size_t)q * B + b;
+    const int c = cp_desc_count(m, H, nw, rois + 4 * i, flags[2 * q],
+                                flags[2 * q + 1]);
+    if ((threadIdx.x & 31) == 0) out[i] = c;
+  }
+}
+
+// No work: its launch is the floor"""
+MULTI_VARIANTS = {
+    "shipped": [],
+    "warp per mask (first body)": [
+        ("\n// No work: its launch is the floor", WARP_PER_MASK_MULTI),
+        ("  cp_multi_block_kern<<<B, kBlockThreads, st.smem,\n"
+         "                        static_cast<cudaStream_t>(stream)>>>(",
+         "  cp_multi_warp_kern<<<blocks_for(B), kWarps * 32, 0,\n"
+         "                        static_cast<cudaStream_t>(stream)>>>("),
+        ("static_cast<const int*>(rois), Q, B, H,\n"
+         "      nw, st.staged, st.vec, static_cast<int*>(out));",
+         "static_cast<const int*>(rois), Q, B, H,\n"
+         "      nw, static_cast<int*>(out));")],
+    "direct loads": [DIRECT_LOADS],
+    # no floor of 16 blocks of 128 threads an SM (the shipped cap)
+    "no register cap": [
+        ("__launch_bounds__(kBlockThreads, 16)\ncp_multi_block_kern",
+         "__launch_bounds__(kBlockThreads)\ncp_multi_block_kern")],
 }
 # A pair body that streams the box's whole row span with 16-byte loads
 # (every fetched sector used whole, span masks from a per-warp table),
@@ -220,7 +270,10 @@ PAIR_VARIANTS = {
 N_FUSED, N_PAIRS = 708, 8192
 
 
-def build(name: str, variants: dict) -> dict:
+def build(name: str, variants: dict, logs: dict | None = None) -> dict:
+    """Each variant of ``csrc/<name>.cu`` (every occurrence of each edit's
+    text replaced) built and loaded; ``logs`` receives each variant's ptxas
+    report."""
     from repro_torch.kernels import cuda_lib
     out_dir = cuda_lib.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -246,7 +299,30 @@ def build(name: str, variants: dict) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {label}:\n{log}")
         libs[label] = ctypes.CDLL(str(so))
+        if logs is not None:
+            logs[label] = log
     return libs
+
+
+def registers(log: str, kernel: str) -> str:
+    """The ptxas "Used N registers" report of ``kernel`` in a build log."""
+    found = False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = kernel in line
+        elif found and "Used" in line:
+            return line.split("info    :")[-1].strip()
+    return "not reported"
+
+
+def in_turns(torch, calls: dict) -> dict:
+    """Each call timed four times (``chip_smoke.time_ms``), in turns: every
+    call, then again in reverse order, twice → label: list of ms."""
+    from chip_smoke import time_ms
+    runs = {label: [] for label in calls}
+    for label in (list(calls) + list(calls)[::-1]) * 2:
+        runs[label].append(time_ms(torch, calls[label]))
+    return runs
 
 
 def sector_bytes(rois: np.ndarray, itemsize: int, sector: int) -> int:
@@ -536,12 +612,14 @@ def popcount_ab(torch, binary, boxes, stream) -> None:
         print(f"ab fused_bounds_verify Q=1, a {nbytes}-byte pinned copy + "
               f"the kernel: {time_ms(torch, run):.4f} ms")
 
-    # -- pair_counts_packed in the pair store's layout: image i is planes
-    # (2i, 2i + 1) of 16,384 resident planes (the 4,096 masks four times,
-    # 103 MB: past the 50 MB L2, as the smoke's store), all 8,192 images
-    # gathered as on the naive scan, and indexed: all of them, and a
-    # 1,115-image device round
+    # 16,384 resident planes: the 4,096 masks four times, 103 MB, past the
+    # 50 MB L2 as the smoke's stores
     big = words.repeat(4, 1, 1)
+    multi_packed_ab(torch, big, boxes, rate, stream)
+
+    # -- pair_counts_packed in the pair store's layout: image i is planes
+    # (2i, 2i + 1) of the 16,384 resident planes, all 8,192 images gathered
+    # as on the naive scan and indexed, and a 1,115-image device round
     boxes = masks_mod.object_boxes(N_PAIRS, h, 224, seed=4)
     f1, f0 = ref._thresh_flags(0.6)
     calls = {}
@@ -568,10 +646,8 @@ def popcount_ab(torch, binary, boxes, stream) -> None:
         lib.pair_packed_launch.argtypes = [P, P, L, P, P, L, P] + [I] * 7 + \
             [P, P]
     for case, (a, b, p_a, p_b, rois, want, bound, sector) in calls.items():
-        runs = {label: [] for label in libs}
-        # in turns: each variant, then again in reverse order, twice
-        for label in (list(libs) + list(libs)[::-1]) * 2:
-            lib = libs[label]
+        runs = {}
+        for label, lib in libs.items():
             out = torch.empty_like(want)
 
             def run(lib=lib, a=a, b=b, p_a=p_a, p_b=p_b, rois=rois, out=out):
@@ -585,10 +661,78 @@ def popcount_ab(torch, binary, boxes, stream) -> None:
             run()
             if not torch.equal(out, want):
                 raise SystemExit(f"pair variant {label} differs")
-            runs[label].append(time_ms(torch, run))
-        for label, ms in runs.items():
+            runs[label] = run
+        for label, ms in in_turns(torch, runs).items():
             mean = sum(ms) / len(ms)
             print(f"ab pair_counts_packed {case}, {label}: {mean:.4f} ms "
+                  f"(runs {', '.join(f'{t:.4f}' for t in ms)}), bound "
+                  f"{bound:.4f} ms, {mean / bound:.2f}x, sector floor "
+                  f"{mean / sector:.2f}x")
+
+
+def multi_packed_ab(torch, big, boxes, rate, stream) -> None:
+    """The packed multi-descriptor kernel's variants on 4,096 of the
+    resident planes ``big`` (every fourth), with the scheduler pass's 8
+    descriptors and with its first alone, indexed and gathered; and the
+    shipped kernel through its wrapper, indexed, against the gather the
+    device step ran before."""
+    from chip_smoke import fused_specs, packed_bound_of, time_ms
+    from repro_torch.core.backend import spec_arrays
+    from repro_torch.kernels import cuda_lib, ops, ref
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dev = big.device
+    n, h, nw = big.shape
+    pos = np.arange(0, n, 4)[:N_RESIDENT]
+    pos_d = torch.from_numpy(pos).to(dev)
+    gathered = big[pos_d]
+    rois_q, lvs, uvs = spec_arrays(fused_specs(boxes[pos % len(boxes)]))
+    cases = {}
+    for q in (8, 1):
+        rq, lq, uq = rois_q[:q], lvs[:q], uvs[:q]
+        want = ref.cp_count_multi_packed_ref(gathered, rq, lq, uq)
+        bound, _, sector = packed_bound_of(
+            torch, ref, "cp_count_multi_packed", (gathered, rq, lq, uq), rate)
+        fl = torch.from_numpy(ref._range_flags(lq, uq).reshape(-1, 2)).to(dev)
+        ro = torch.from_numpy(rq).to(dev)
+        wrap = time_ms(torch, lambda rq=rq, lq=lq, uq=uq: (
+            ops.cp_count_multi_packed(big, rq, lq, uq, pos)))
+        old = time_ms(torch, lambda ro=ro, lq=lq, uq=uq: (
+            ops.cp_count_multi_packed(big.index_select(0, pos_d), ro, lq,
+                                      uq)))
+        print(f"ab cp_count_multi_packed Q={q}: bound {bound:.4f} ms, sector "
+              f"floor {sector:.4f} ms; shipped through the wrapper, indexed "
+              f"(host positions and ROIs staged with the flags) {wrap:.4f} "
+              f"ms; gather + kernel (operands on the card) {old:.4f} ms")
+        for how in ("indexed", "gathered"):
+            cases[f"Q={q}, {how}"] = (want, bound, sector, fl, ro, how)
+    logs: dict = {}
+    libs = build("popcount", MULTI_VARIANTS, logs)
+    for label, lib in libs.items():
+        lib.cp_multi_packed_launch.argtypes = [P, P, L, P, P] + [I] * 4 + \
+            [P, P]
+        kern = "cp_multi_warp_kern" if "warp" in label else \
+            "cp_multi_block_kern"
+        print(f"ab cp_count_multi_packed {label}: ptxas {kern}: "
+              f"{registers(logs[label], kern)}")
+    for case, (want, bound, sector, fl, ro, how) in cases.items():
+        src, p, m = (big, pos_d.data_ptr(), n) if how == "indexed" else \
+            (gathered, None, N_RESIDENT)
+        calls = {}
+        for label, lib in libs.items():
+            out = torch.empty_like(want)
+
+            def run(lib=lib, out=out, fl=fl, ro=ro, src=src, p=p, m=m):
+                rc = lib.cp_multi_packed_launch(
+                    src.data_ptr(), p, m, fl.data_ptr(), ro.data_ptr(),
+                    ro.shape[0], N_RESIDENT, h, nw, out.data_ptr(), stream)
+                cuda_lib.check(rc, "cp_count_multi_packed")
+            run()
+            if not torch.equal(out, want):
+                raise SystemExit(f"multi packed variant {label} differs")
+            calls[label] = run
+        for label, ms in in_turns(torch, calls).items():
+            mean = sum(ms) / len(ms)
+            print(f"ab cp_count_multi_packed {case}, {label}: {mean:.4f} ms "
                   f"(runs {', '.join(f'{t:.4f}' for t in ms)}), bound "
                   f"{bound:.4f} ms, {mean / bound:.2f}x, sector floor "
                   f"{mean / sector:.2f}x")

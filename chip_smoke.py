@@ -37,11 +37,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    same queries on a float store of the first chunk give the packed
    store's answers;
 7. the four popcount kernels against their plain versions (main-path
-   inputs and edge cases, positions and misaligned planes among them,
+   inputs and edge cases, positions and misaligned planes among them;
+   for ``cp_count_multi_packed`` also Q from 1 to 32, B from 1 to 4,096,
+   empty and full-row ROIs, lv == uv and planes past shared memory;
    tolerance 0) and timed beside their bounds and sector floors;
-   ``fused_bounds_verify`` also as its verification step runs it (one
-   staged copy, indexed reads of the resident words) against the copies
-   and gather it replaced;
+   ``fused_bounds_verify`` and ``cp_count_multi_packed`` also as their
+   device steps run them (one staged copy, indexed reads of the resident
+   words) against the copies and gathers they replaced;
 8. the pair path: 8,192 images of (model saliency, human attention) masks
    (benchmarks/bench_pair.py's recipe, made in worker processes) ingested
    as a float store and, binarised, as a packed store; on each, the
@@ -376,6 +378,7 @@ def binary_chunk(job):
 # The kernels that read a resident array in place: argument index of each
 # position list -> index of the mask operand it indexes.
 POSITION_ARGS = {"cp_count_multi": {4: 0},
+                 "cp_count_multi_packed": {4: 0},
                  "fused_bounds_verify": {6: 0},
                  "pair_counts_packed": {5: 0, 6: 1}}
 
@@ -535,6 +538,8 @@ def packed_edge_cases(torch, ops, ref, pack_masks, dev):
         check("cp_count_multi_packed",
               ops.cp_count_multi_packed(m, rois_q, lvs, uvs),
               ref.cp_count_multi_packed_ref(m, rois_q, lvs, uvs))
+        n_cases["cp_count_multi_packed"] += multi_packed_edge_cases(
+            torch, ops, ref, m, rois)
         lb = rng.integers(0, 1000, (3, b)).astype(np.int32)
         mixed = rng.random((3, b)) < 0.5
         mixed[:, 0] = True          # a mask whose entries are all decided
@@ -559,8 +564,89 @@ def packed_edge_cases(torch, ops, ref, pack_masks, dev):
             check("mask_agg_counts_packed",
                   ops.mask_agg_counts_packed(grp, rois[: b // 2], t),
                   ref.mask_agg_counts_packed_ref(grp, rois[: b // 2], t))
+    # cp_count_multi_packed on planes past shared memory (400 rows of 35
+    # words, counted from device memory), and from 1 to 4,096 masks
+    rng = np.random.default_rng(320)
+    m = torch.as_tensor(pack_masks(rng.random((3, 400, 1100)) < 0.4).view(
+        np.int32), device=dev)
+    rois = torch.as_tensor(np.int32([[0, 0, 400, 1120], [5, 31, 399, 700],
+                                     [-2, 3, 7, 1200]]), device=dev)
+    n_cases["cp_count_multi_packed"] += multi_packed_edge_cases(
+        torch, ops, ref, m, rois)
+    n_cases["cp_count_multi_packed"] += multi_packed_batch_cases(
+        torch, ops, ref, pack_masks, dev)
     torch.cuda.synchronize()
     return n_cases
+
+
+# Q of the multi-descriptor edge cases, and range flag pairs in turn
+# (lv == uv, which counts nothing, among them)
+MULTI_QS = (1, 2, 3, 5, 8, 9, 17, 32)
+MULTI_RANGES = ((0.5, 1.5), (-0.5, 0.5), (0.0, 1.0), (0.5, 0.5),
+                (1.0, 1.5), (-0.5, 1.5))
+
+
+def multi_packed_edge_cases(torch, ops, ref, m, rois) -> int:
+    """``cp_count_multi_packed`` against its plain version (tolerance 0) on
+    words ``m`` (b, h, nw) with ROIs ``rois`` (b, 4): Q from 1 to 32 over
+    the ROIs, empty ROIs, full rows and the ROIs reversed in turn, with the
+    flag pairs of MULTI_RANGES; without positions and with positions that
+    repeat, run backwards or are empty; on the planes as given and on a
+    misaligned copy.  Returns the number of cases."""
+    b, h, nw = m.shape
+    empty = rois.clone()
+    empty[:, 2] = empty[:, 0]
+    full = torch.tensor([0, 0, h, 32 * nw], dtype=torch.int32,
+                        device=m.device).expand_as(rois)
+    pool = (rois, empty, full, rois.flip(0))
+    n = 0
+    for words in (m, misaligned(torch, m)):
+        for pos in (None, [b - 1, 0, b - 1, 0], list(range(b))[::-1], []):
+            pn = None if pos is None else np.asarray(pos, np.int64)
+            for q in MULTI_QS:
+                rq = torch.stack([pool[i % 4] for i in range(q)])
+                if pn is not None:
+                    rq = rq[:, torch.as_tensor(pn, device=m.device)]
+                lq = np.float32([MULTI_RANGES[i % 6][0] for i in range(q)])
+                uq = np.float32([MULTI_RANGES[i % 6][1] for i in range(q)])
+                err = max_abs_err(torch, ops.cp_count_multi_packed(
+                    words, rq, lq, uq, pn), ref.cp_count_multi_packed_ref(
+                    words, rq, lq, uq, pn))
+                if err != 0:
+                    fail(f"cp_count_multi_packed differs from its plain "
+                         f"version on {tuple(m.shape)} words, Q={q}, "
+                         f"positions {pos}")
+                n += 1
+    return n
+
+
+def multi_packed_batch_cases(torch, ops, ref, pack_masks, dev) -> int:
+    """``cp_count_multi_packed`` over 1 to 4,096 positions (drawn with
+    repeats) into 512 resident 224x224 masks, with the scheduler pass's 8
+    descriptors: indexed with host positions and with positions on the
+    card, and gathered; tolerance 0.  Returns the number of cases."""
+    from repro_torch.core.backend import spec_arrays
+    from repro_torch.data.masks import object_boxes
+    rng = np.random.default_rng(330)
+    words = torch.as_tensor(pack_masks(rng.random((512, H, W)) < 0.4).view(
+        np.int32), device=dev)
+    n = 0
+    for b in (1, 7, 708, 4096):
+        pos = rng.integers(0, 512, b)
+        rois_q, lvs, uvs = spec_arrays(fused_specs(object_boxes(b, H, W,
+                                                                seed=b)))
+        want = ref.cp_count_multi_packed_ref(words, rois_q, lvs, uvs, pos)
+        pos_d = torch.as_tensor(pos, device=dev)
+        for got in (ops.cp_count_multi_packed(words, rois_q, lvs, uvs, pos),
+                    ops.cp_count_multi_packed(words, torch.as_tensor(
+                        rois_q, device=dev), lvs, uvs, pos_d),
+                    ops.cp_count_multi_packed(words[pos_d], rois_q, lvs,
+                                              uvs)):
+            if max_abs_err(torch, got, want) != 0:
+                fail(f"cp_count_multi_packed differs from its plain version "
+                     f"on {b} of 512 resident masks")
+            n += 1
+    return n
 
 
 def pair_sql(q, t_diff, t_ranked):
@@ -800,6 +886,59 @@ def fused_main_path_step(torch, ops, ref, a):
     return gathered("fused_bounds_verify", a)
 
 
+def multi_packed_main_path_step(torch, ops, ref, a):
+    """``cp_count_multi_packed``'s largest indexed main-path call (the
+    device backend's fused pass): the indexed kernel on the resident words,
+    held against its plain version (tolerance 0), and timed against the
+    gathering route twice.  First with every operand on the card: a gather
+    and the kernel on the gathered batch against the kernel reading in
+    place.  Then as the device step ran before and runs now: pageable
+    copies of positions and ROIs, a gather and the kernel, against one
+    staged copy and the indexed kernel; the old route's pageable copies
+    block the host inside its device-timeline span, so the host clock
+    compares what a caller waits for.  Returns the gathered call's
+    arguments with the ROIs on the card, on which the kernel alone is
+    measured."""
+    if len(a) <= 4 or a[4] is None:
+        fail("the largest indexed cp_count_multi_packed call carried no "
+             "positions")
+    packed, rois, lvs, uvs, pos = a
+    dev = packed.device
+    pos_d = torch.as_tensor(pos).to(dev)
+    rois_d = torch.as_tensor(rois).to(dev)
+
+    def old():
+        return ops.cp_count_multi_packed(
+            packed.index_select(0, torch.from_numpy(pos).to(dev)),
+            torch.from_numpy(rois).to(dev), lvs, uvs)
+
+    def new():
+        return ops.cp_count_multi_packed(*a)
+    routes = {
+        "gather + kernel": lambda: ops.cp_count_multi_packed(
+            packed.index_select(0, pos_d), rois_d, lvs, uvs),
+        "indexed kernel": lambda: ops.cp_count_multi_packed(
+            packed, rois_d, lvs, uvs, pos_d)}
+    step = {"2 pageable copies + gather + kernel": old,
+            "1 staged copy + indexed kernel": new}
+    want = ref.cp_count_multi_packed_ref(*a)
+    for label, route in {**routes, **step}.items():
+        err = max_abs_err(torch, route(), want)
+        if err != 0:
+            fail(f"cp_count_multi_packed step ({label}) differs from its "
+                 f"plain version (max abs err {err})")
+    what = (f"{len(pos)} of {packed.shape[0]} resident masks, "
+            f"Q={rois.shape[0]}")
+    print_step("cp_count_multi_packed", f"{what}, operands on the card, "
+               f"both routes equal", step_times(torch, routes))
+    print_step("cp_count_multi_packed", f"{what}, host positions and ROIs "
+               f"as the device step passes them, both routes equal, the old "
+               f"route's span with its host stalls", step_times(torch, step))
+    # the kernel alone, its ROIs on the card as the host backend passes
+    # them: only the flags are staged
+    return (gathered("cp_count_multi_packed", a)[0], rois_d, lvs, uvs)
+
+
 def pair_main_path_step(torch, ops, ref, a):
     """``pair_counts_packed``'s largest indexed main-path call (a device
     verification round): the kernel reading both roles in place, held
@@ -1010,6 +1149,8 @@ def packed_phase(torch, dev, n, floor_ms):
     rate = card_popcount_rate(torch)
     largest["fused_bounds_verify"] = (0, fused_main_path_step(
         torch, ops, ref, largest[("fused_bounds_verify", "indexed")][1]))
+    largest["cp_count_multi_packed"] = (0, multi_packed_main_path_step(
+        torch, ops, ref, largest[("cp_count_multi_packed", "indexed")][1]))
     plain = {"cp_count_packed": ref.cp_count_packed_ref,
              "cp_count_multi_packed": ref.cp_count_multi_packed_ref,
              "mask_agg_counts_packed": ref.mask_agg_counts_packed_ref,

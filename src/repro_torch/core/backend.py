@@ -360,10 +360,11 @@ def _device_group_counts(masks, flat_pos, rois, thresh, s: int):
 
 
 def _device_multi_counts_packed(packed, pos, rois_q, lvs, uvs):
-    """Packed-tier sibling of :func:`_device_multi_counts` (``lvs``/``uvs``
-    host float32 arrays, turned into flags by the wrapper)."""
-    return kops.cp_count_multi_packed(packed.index_select(0, pos), rois_q,
-                                      lvs, uvs)
+    """Packed-tier sibling of :func:`_device_multi_counts`: the kernel reads
+    the batch's rows of the resident words in place (no gather).  ``pos``,
+    ``rois_q`` and ``lvs``/``uvs`` are host arrays; the wrapper stages them,
+    with the flags it makes of ``lvs``/``uvs``, in one copy."""
+    return kops.cp_count_multi_packed(packed, rois_q, lvs, uvs, pos)
 
 
 def _device_group_counts_packed(packed, flat_pos, rois, thresh, s: int):
@@ -529,13 +530,13 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
 
     def _multi_counts(self, positions, rois_q, lvs, uvs) -> np.ndarray:
         """Q descriptors over the resident rows at ``positions`` → (Q, B)."""
-        pos = _to(np.asarray(positions, np.int64), self.device)
-        rois_q = _to(rois_q, self.device)
+        pos = np.asarray(positions, np.int64)
         if self._packed:
             return _host(_device_multi_counts_packed(self._masks, pos, rois_q,
                                                      lvs, uvs))
-        return _host(_device_multi_counts(self._masks, pos, rois_q, lvs,
-                                          uvs))
+        return _host(_device_multi_counts(self._masks,
+                                          _to(pos, self.device),
+                                          _to(rois_q, self.device), lvs, uvs))
 
     def _fused_verify_batch(self, ctx, batch, pos, rois_q, lvs, uvs,
                             decided, lb):

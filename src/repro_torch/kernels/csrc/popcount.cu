@@ -4,7 +4,7 @@
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/popcount.py:
 //   _cp_popcount_kernel           -> cp_packed_kern       (cp_count_packed)
-//   _cp_multi_popcount_kernel     -> cp_multi_packed_kern (cp_count_multi_packed)
+//   _cp_multi_popcount_kernel     -> cp_multi_block_kern  (cp_count_multi_packed)
 //   _agg_popcount_kernel          -> agg_packed_kern      (mask_agg_counts_packed)
 //   _pair_popcount_kernel         -> pair_packed_kern     (pair_counts_packed)
 //   _fused_verify_popcount_kernel -> fused_verify_kern    (fused_bounds_verify)
@@ -21,8 +21,8 @@
 // cover nearly the whole span of its rows: the sector floor is about twice
 // the word bound.
 //
-// Design of the single-pass kernels (cp_packed_kern, cp_multi_packed_kern,
-// agg_packed_kern).  One warp owns one mask (one group for MASK_AGG) and
+// Design of the single-pass kernels (cp_packed_kern, agg_packed_kern).
+// One warp owns one mask (one group for MASK_AGG) and
 // walks its ROI rows in a loop; it reduces with __reduce_add_sync and lane
 // 0 writes each output once, so there are no atomics and no zeroing
 // memset.  Only the words the ROI touches are read: its nk = ceil(c1/32) -
@@ -32,24 +32,29 @@
 // keeps one word column, so it builds that column's span mask once per
 // descriptor, in a register, not per row, and walks the column with four
 // independent loads in flight (two rows of S loads each for MASK_AGG),
-// unrolled by hand.  Q descriptors re-read the mask's rows from L1 (6 KB),
-// so the words come from device memory once; Q and S are runtime arguments.
+// unrolled by hand.  S is a runtime argument.
 //
-// Design of fused_verify_kern (the verification batch of a packed query,
-// a few hundred masks).  A warp per mask left 43 of 132 SMs idle at 708
-// masks and waited on load latency, one descriptor after another.  Here a
-// block of 128 threads owns one mask, read in place from the resident
-// (N, H, nw) array through an optional position list (no gather).  A first
-// pass, a thread per descriptor, writes the CHI-decided entries (lb) and
-// the empty ones (0) and takes the union of the counted descriptors' rows;
-// a mask whose entries are all decided stops there and reads no word.
-// Otherwise the block copies the words of those rows, one contiguous range
-// (at most 6,272 B at 224x224), into shared memory with 16-byte cp.async
-// (a word-by-word copy where the plane is not 16-byte aligned), and its
-// warps count the descriptors from there, q = warp, warp + 4, ...  Every
-// sector is read from memory once whatever Q is, and each (q, b) is
-// written once.  A plane over 48 KB is counted from device memory directly.
-// The wrapper stages every small input (flags, ROIs, decided, lb,
+// Design of the Q-descriptor kernels, fused_verify_kern (the verification
+// batch of a packed query, a few hundred masks) and cp_multi_block_kern
+// (the scheduler's fused pass, thousands of masks): one body,
+// block_counts.  A warp per mask, its descriptors one after another, each
+// re-walking the rows from L1 and ending in its own reduction, left 43 of
+// 132 SMs idle at 708 masks and waited on load latency.  Here a block of
+// 128 threads owns one mask, read in place from the resident (N, H, nw)
+// array through an optional position list (no gather).  A first pass, a
+// thread per descriptor, writes the CHI-decided entries (lb; the megakernel
+// only) and the empty ones (an empty ROI or lv == uv: 0) and takes the
+// union of the counted descriptors' rows; a mask with nothing to count
+// stops there and reads no word.  Otherwise the block copies the words of
+// those rows, one contiguous range (at most 6,272 B at 224x224), into
+// shared memory with 16-byte cp.async (a word-by-word copy where the plane
+// is not 16-byte aligned), and its warps count the descriptors from there,
+// q = warp, warp + 4, ...  Every sector is read from memory once whatever
+// Q is, and each (q, b) is written once.  A plane over 48 KB is counted
+// from device memory directly.  cp_multi_block_kern asks for all 16 blocks
+// of an SM to be resident (32 registers, as the compiler chooses anyway);
+// its thousands of masks ran 3% faster so (benchmarks/chip_kernel_ab.py).
+// The wrappers stage every small host input (flags, ROIs, decided, lb,
 // positions) in one pinned buffer and one copy.
 //
 // Design of pair_packed_kern (8,192 pairs on the naive scan).  A warp per
@@ -78,7 +83,7 @@
 #include "common.cuh"
 
 constexpr int kWarps = 8;  // warps per block, one mask (or group) each
-constexpr int kVerifyThreads = 128;         // fused_verify_kern: a block a mask
+constexpr int kBlockThreads = 128;          // block_counts: a block a mask
 constexpr int kStageBytes = 48 * 1024;      // largest plane staged in shared
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -209,23 +214,6 @@ cp_packed_kern(const unsigned* __restrict__ words,  // (B, H, nw)
   if ((threadIdx.x & 31) == 0) out[b] = c;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-cp_multi_packed_kern(const unsigned* __restrict__ words,  // (B, H, nw)
-                     const int* __restrict__ rois,        // (Q, B, 4)
-                     const int* __restrict__ flags,       // (Q, 2): f1, f0
-                     int Q, int B, int H, int nw,
-                     int* __restrict__ out) {             // (Q, B)
-  const int b = warp_item();
-  if (b >= B) return;
-  const unsigned* m = words + (size_t)b * H * nw;
-  for (int q = 0; q < Q; ++q) {
-    const size_t i = (size_t)q * B + b;
-    const int c = cp_desc_count(m, H, nw, rois + 4 * i, flags[2 * q],
-                                flags[2 * q + 1]);
-    if ((threadIdx.x & 31) == 0) out[i] = c;
-  }
-}
-
 // 16-byte asynchronous copy from device to shared memory; both addresses
 // 16-byte aligned.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -238,19 +226,23 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-// staged: the plane fits kStageBytes, so a mask's rows are copied to
-// shared memory once; vec: planes start on 16-byte boundaries (the array
-// does, and H * nw is a multiple of 4), so the copy moves 16-byte pieces.
-__global__ void __launch_bounds__(kVerifyThreads)
-fused_verify_kern(const unsigned* __restrict__ words,      // (N, H, nw)
-                  const long long* __restrict__ positions,  // (B,) or null
-                  long long N,
-                  const int* __restrict__ flags,    // (Q, 2)
-                  const int* __restrict__ rois,     // (Q, B, 4)
-                  const int* __restrict__ decided,  // (Q, B) 0/1
-                  const int* __restrict__ lb,       // (Q, B)
-                  int Q, int B, int H, int nw, int staged, int vec,
-                  int* __restrict__ out) {          // (Q, B)
+// Q descriptors over mask b = blockIdx.x, a block of kBlockThreads; with
+// kDecided, entries with decided[i] set pass lb[i] through uncounted,
+// without it no entry is decided (decided and lb are not read).  staged:
+// the plane fits kStageBytes, so the counted rows are copied to shared
+// memory once; vec: planes start on 16-byte boundaries (the array does,
+// and H * nw is a multiple of 4), so the copy moves 16-byte pieces.
+template <bool kDecided>
+__device__ __forceinline__ void block_counts(
+    const unsigned* __restrict__ words,      // (N, H, nw)
+    const long long* __restrict__ positions,  // (B,) or null
+    long long N,
+    const int* __restrict__ flags,    // (Q, 2)
+    const int* __restrict__ rois,     // (Q, B, 4)
+    const int* __restrict__ decided,  // (Q, B) 0/1, kDecided only
+    const int* __restrict__ lb,       // (Q, B), kDecided only
+    int Q, int B, int H, int nw, int staged, int vec,
+    int* __restrict__ out) {          // (Q, B)
   extern __shared__ __align__(16) unsigned stage[];
   __shared__ int rows[2];  // union [r0, r1) of the counted descriptors' rows
   const int b = blockIdx.x;
@@ -266,7 +258,7 @@ fused_verify_kern(const unsigned* __restrict__ words,      // (N, H, nw)
     const size_t i = (size_t)q * B + b;
     const Roi r = clip_roi(rois + 4 * i, H, nw);
     const bool counted = r.area() > 0 && (flags[2 * q] | flags[2 * q + 1]);
-    const int dec = decided[i];
+    const bool dec = kDecided && decided[i];
     if (dec) out[i] = lb[i];
     else if (!counted) out[i] = 0;
     if (counted && !dec) {
@@ -298,12 +290,34 @@ fused_verify_kern(const unsigned* __restrict__ words,      // (N, H, nw)
     const size_t i = (size_t)q * B + b;
     const int f1 = flags[2 * q], f0 = flags[2 * q + 1];
     const Roi r = clip_roi(rois + 4 * i, H, nw);
-    if (decided[i] || r.area() <= 0 || !(f1 | f0)) continue;  // warp-uniform
+    if ((kDecided && decided[i]) || r.area() <= 0 || !(f1 | f0))
+      continue;  // warp-uniform
     const int c = staged ? cp_desc_count<true>(stage, H, nw, rois + 4 * i,
                                                f1, f0, a0)
                          : cp_desc_count(m, H, nw, rois + 4 * i, f1, f0);
     if (lane == 0) out[i] = c;
   }
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+fused_verify_kern(const unsigned* __restrict__ words,
+                  const long long* __restrict__ positions, long long N,
+                  const int* __restrict__ flags, const int* __restrict__ rois,
+                  const int* __restrict__ decided, const int* __restrict__ lb,
+                  int Q, int B, int H, int nw, int staged, int vec,
+                  int* __restrict__ out) {
+  block_counts<true>(words, positions, N, flags, rois, decided, lb, Q, B, H,
+                     nw, staged, vec, out);
+}
+
+__global__ void __launch_bounds__(kBlockThreads, 16)
+cp_multi_block_kern(const unsigned* __restrict__ words,
+                    const long long* __restrict__ positions, long long N,
+                    const int* __restrict__ flags,
+                    const int* __restrict__ rois, int Q, int B, int H,
+                    int nw, int staged, int vec, int* __restrict__ out) {
+  block_counts<false>(words, positions, N, flags, rois, nullptr, nullptr, Q,
+                      B, H, nw, staged, vec, out);
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
@@ -430,33 +444,51 @@ extern "C" int cp_packed_launch(const void* words, const void* rois, int f1,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int cp_multi_packed_launch(const void* words, const void* rois,
-                                      const void* flags, int Q, int B, int H,
+// How block_counts reads a (., H, nw) array at p: rows staged in shared
+// memory when a plane fits kStageBytes (smem bytes of dynamic shared
+// memory), by 16-byte pieces when every plane is 16-byte aligned.
+struct Staging {
+  int staged, vec;
+  size_t smem;
+};
+
+static inline Staging staging_of(const void* p, int H, int nw) {
+  const size_t plane_bytes = (size_t)H * nw * 4;
+  const int staged = plane_bytes <= (size_t)kStageBytes;
+  return Staging{staged, planes_aligned(p, H, nw), staged ? plane_bytes : 0};
+}
+
+// Q descriptors over B masks, a block a mask: mask b is row positions[b] of
+// the (N, H, nw) array, or row b when positions is null.  Every entry of
+// out is written.
+extern "C" int cp_multi_packed_launch(const void* words, const void* positions,
+                                      long long N, const void* flags,
+                                      const void* rois, int Q, int B, int H,
                                       int nw, void* out, void* stream) {
-  cp_multi_packed_kern<<<blocks_for(B), kWarps * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(words), static_cast<const int*>(rois),
-      static_cast<const int*>(flags), Q, B, H, nw, static_cast<int*>(out));
+  const Staging st = staging_of(words, H, nw);
+  cp_multi_block_kern<<<B, kBlockThreads, st.smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(words),
+      static_cast<const long long*>(positions), N,
+      static_cast<const int*>(flags), static_cast<const int*>(rois), Q, B, H,
+      nw, st.staged, st.vec, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Q descriptors over B masks: mask b is row positions[b] of the (N, H, nw)
-// array, or row b when positions is null.  Every entry of out is written.
+// The same with CHI-decided entries, which pass lb through uncounted.
 extern "C" int fused_verify_launch(const void* words, const void* positions,
                                    long long N, const void* flags,
                                    const void* rois, const void* decided,
                                    const void* lb, int Q, int B, int H,
                                    int nw, void* out, void* stream) {
-  const size_t plane_bytes = (size_t)H * nw * 4;
-  const int staged = plane_bytes <= (size_t)kStageBytes;
-  const int vec = planes_aligned(words, H, nw);
-  fused_verify_kern<<<B, kVerifyThreads, staged ? plane_bytes : 0,
+  const Staging st = staging_of(words, H, nw);
+  fused_verify_kern<<<B, kBlockThreads, st.smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(words),
       static_cast<const long long*>(positions), N,
       static_cast<const int*>(flags), static_cast<const int*>(rois),
       static_cast<const int*>(decided), static_cast<const int*>(lb), Q, B, H,
-      nw, staged, vec, static_cast<int*>(out));
+      nw, st.staged, st.vec, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -106,7 +106,8 @@ cp_count_multi_packed = Kernel(
     "cp_count_multi_packed", ref.cp_count_multi_packed_ref,
     cp_count_multi_packed_cuda,
     "Multi-query CP on packed words — (B,H,words), (Q,B,4), (Q,), (Q,) → "
-    "(Q,B) int32.")
+    "(Q,B) int32; with positions (B,) over an (N,H,words) array, the batch "
+    "packed[positions], read in place on the card.")
 mask_agg_counts_packed = Kernel(
     "mask_agg_counts_packed", ref.mask_agg_counts_packed_ref,
     mask_agg_counts_packed_cuda,

@@ -7,21 +7,23 @@ each the port of a Pallas kernel in the JAX package's ``popcount.py``:
 
 * :func:`cp_count_packed_cuda` — ``cp_packed_kern`` (``_cp_popcount_kernel``):
   exact CP per mask;
-* :func:`cp_count_multi_packed_cuda` — ``cp_multi_packed_kern``
-  (``_cp_multi_popcount_kernel``): Q descriptors from one read of each mask;
+* :func:`cp_count_multi_packed_cuda` — ``cp_multi_block_kern``
+  (``_cp_multi_popcount_kernel``): Q descriptors from one read of each mask,
+  read in place through ``positions``;
 * :func:`fused_bounds_verify_cuda` — ``fused_verify_kern``
-  (``_fused_verify_popcount_kernel``): Q descriptors, CHI-decided entries
-  passed through uncounted — one launch per verification batch, reading
-  the masks in place through ``positions``, its small inputs staged in one
-  pinned buffer and copied to the card once;
+  (``_fused_verify_popcount_kernel``): the same with CHI-decided entries
+  passed through uncounted — one launch per verification batch;
 * :func:`mask_agg_counts_packed_cuda` — ``agg_packed_kern``
   (``_agg_popcount_kernel``): AND / OR over S members;
 * :func:`pair_counts_packed_cuda` — ``pair_packed_kern``
   (``_pair_popcount_kernel``): inter / union / diff of two masks per pair,
   each role optionally read in place through its positions.
 
-:func:`empty_launch` launches a kernel that does nothing: its time is the
-floor under every small call.
+The two Q-descriptor launchers share one block-per-mask body and take
+their small host inputs (flags, ROIs, verdicts, bounds, positions) staged
+in one pinned buffer and copied to the card once.  :func:`empty_launch`
+launches a kernel that does nothing: its time is the floor under every
+small call.
 
 The CP range and the threshold reach the kernels as integer flags,
 computed here from float32 values exactly as the JAX wrappers do
@@ -49,7 +51,7 @@ def _lib():
     lib = cuda_lib.library("popcount")
     cuda_lib.bind(lib.cp_packed_launch, [_P, _P, _I, _I, _I, _I, _I, _P, _P])
     cuda_lib.bind(lib.cp_multi_packed_launch,
-                  [_P, _P, _P, _I, _I, _I, _I, _P, _P])
+                  [_P, _P, _L, _P, _P, _I, _I, _I, _I, _P, _P])
     cuda_lib.bind(lib.fused_verify_launch,
                   [_P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P])
     cuda_lib.bind(lib.agg_packed_launch,
@@ -86,22 +88,72 @@ def cp_count_packed_cuda(packed: torch.Tensor, rois, lv, uv):
     return out, 1
 
 
-def cp_count_multi_packed_cuda(packed: torch.Tensor, rois, lvs, uvs):
-    """(B, H, words), (Q, B, 4), (Q,), (Q,) → ((Q, B) int32, launches)."""
+def _on_card(small) -> bool:
+    """Whether any small operand is already a CUDA tensor."""
+    return any(isinstance(x, torch.Tensor) and x.is_cuda for x in small)
+
+
+def _host_positions(positions):
+    """A position list as a (B,) int64 host array, or None."""
+    if positions is None:
+        return None
+    return np.asarray(positions).astype(np.int64, copy=False).reshape(-1)
+
+
+def _staged(pos, parts, device):
+    """Host ``parts`` (and ``pos`` first, where given, so it stays 8-byte
+    aligned) in one staged copy → (the card buffer, to keep until the
+    launch is queued; pos's device address or None; the parts' addresses)."""
+    if pos is None:
+        card, addr = cuda_lib.stage(parts, device)
+        return card, None, addr
+    card, (pos_addr, *addr) = cuda_lib.stage([pos] + parts, device)
+    return card, pos_addr, addr
+
+
+def _multi_launch(words: torch.Tensor, q: int, b: int, flags, rois,
+                  positions) -> torch.Tensor:
+    """The Q-descriptor kernel on operands given by their device addresses
+    (``positions`` None or an address) → (Q, B) int32."""
+    n, h, nw = words.shape
+    out = torch.empty((q, b), dtype=torch.int32, device=words.device)
+    rc = _lib().cp_multi_packed_launch(
+        words.data_ptr(), positions, n, flags, rois, q, b, h, nw,
+        out.data_ptr(), cuda_lib.stream(words.device))
+    cuda_lib.check(rc, "cp_count_multi_packed")
+    return out
+
+
+def cp_count_multi_packed_cuda(packed: torch.Tensor, rois, lvs, uvs,
+                               positions=None):
+    """(N, H, words), (Q, B, 4), (Q,), (Q,), positions (B,) int64 or None →
+    ((Q, B) int32, launches).  Mask ``b`` is ``packed[positions[b]]``, read
+    in place (no gather), or ``packed[b]`` without positions; positions
+    must lie in [0, N) (the kernel traps otherwise, as an index out of
+    range does).  Host ROIs and positions go to the card with the flags in
+    one staged copy; when either is already a CUDA tensor, both are
+    converted on the card instead, with no copy back to the host."""
     cuda_lib.require_cuda(packed, "packed", _WORDS)
-    b, h, nw = packed.shape
+    n = packed.shape[0]
     dev = packed.device
-    flags = cuda_lib.to_card(_flags(lvs, uvs), dev)
+    flags = _flags(lvs, uvs)
     q = flags.shape[0]
-    rois = cuda_lib.int32_rows(rois, dev, (q, b, 4))
+    if _on_card((rois, positions)):
+        pos = _positions(positions, dev)
+        b = n if pos is None else pos.shape[0]
+        rois = cuda_lib.int32_rows(rois, dev, (q, b, 4))
+        if q == 0 or b == 0:
+            return torch.zeros((q, b), dtype=torch.int32, device=dev), 0
+        flags = cuda_lib.to_card(flags, dev)
+        return _multi_launch(packed, q, b, flags.data_ptr(), rois.data_ptr(),
+                             None if pos is None else pos.data_ptr()), 1
+    pos = _host_positions(positions)
+    b = n if pos is None else pos.shape[0]
+    rois = _host_rows(rois, np.int32, (q, b, 4), "rois")
     if q == 0 or b == 0:
         return torch.zeros((q, b), dtype=torch.int32, device=dev), 0
-    out = torch.empty((q, b), dtype=torch.int32, device=dev)
-    rc = _lib().cp_multi_packed_launch(
-        packed.data_ptr(), rois.data_ptr(), flags.data_ptr(), q, b, h, nw,
-        out.data_ptr(), cuda_lib.stream(dev))
-    cuda_lib.check(rc, "cp_count_multi_packed")
-    return out, 1
+    card, pos_addr, (flags_addr, rois_addr) = _staged(pos, [flags, rois], dev)
+    return _multi_launch(packed, q, b, flags_addr, rois_addr, pos_addr), 1
 
 
 def _host_rows(x, dtype, shape, what: str) -> np.ndarray:
@@ -152,8 +204,7 @@ def fused_bounds_verify_cuda(packed: torch.Tensor, rois, lvs, uvs, decided,
     dev = packed.device
     flags = _flags(lvs, uvs)
     q = flags.shape[0]
-    small = (rois, decided, lb, positions)
-    if any(isinstance(x, torch.Tensor) and x.is_cuda for x in small):
+    if _on_card((rois, decided, lb, positions)):
         pos = _positions(positions, dev)
         b = n if pos is None else pos.shape[0]
         rois = cuda_lib.int32_rows(rois, dev, (q, b, 4))
@@ -164,21 +215,15 @@ def fused_bounds_verify_cuda(packed: torch.Tensor, rois, lvs, uvs, decided,
             return torch.zeros((q, b), dtype=torch.int32, device=dev), 0
         return fused_verify_launch(packed, cuda_lib.to_card(flags, dev),
                                    rois, decided, lb, pos), 1
-    pos = None
-    if positions is not None:
-        pos = np.asarray(positions).astype(np.int64, copy=False).reshape(-1)
+    pos = _host_positions(positions)
     b = n if pos is None else pos.shape[0]
     rois = _host_rows(rois, np.int32, (q, b, 4), "rois")
     decided = _host_rows(decided, np.int32, (q, b), "decided") != 0
     lb = _host_rows(lb, np.int32, (q, b), "lb")
     if q == 0 or b == 0:
         return torch.zeros((q, b), dtype=torch.int32, device=dev), 0
-    parts = [flags, rois, decided.astype(np.int32), lb]
-    if pos is None:
-        card, addr = cuda_lib.stage(parts, dev)
-        pos_addr = None
-    else:
-        card, (pos_addr, *addr) = cuda_lib.stage([pos] + parts, dev)
+    card, pos_addr, addr = _staged(
+        pos, [flags, rois, decided.astype(np.int32), lb], dev)
     return _fused_launch(packed, q, b, *addr, pos_addr), 1
 
 

@@ -228,9 +228,12 @@ def cp_count_packed_ref(packed: torch.Tensor, rois, lv, uv) -> torch.Tensor:
                   f1, f0)
 
 
-def cp_count_multi_packed_ref(packed: torch.Tensor, rois, lvs,
-                              uvs) -> torch.Tensor:
-    """(B, H, words), (Q, B, 4), (Q,), (Q,) → (Q, B) int32."""
+def cp_count_multi_packed_ref(packed: torch.Tensor, rois, lvs, uvs,
+                              positions=None) -> torch.Tensor:
+    """(B, H, words), (Q, B, 4), (Q,), (Q,) → (Q, B) int32.  With
+    ``positions`` (B,), the batch is ``packed[positions]`` of an
+    (N, H, words) array."""
+    packed = _gather(packed, positions)
     _, h, nw = packed.shape
     rois = _rois(rois, packed)
     flags = _range_flags(lvs, uvs).reshape(-1, 2)

@@ -10,6 +10,11 @@ Inputs come from fixed numpy seeds; every output is an int32 count, so
 kernel and plain version must agree exactly.
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +25,8 @@ from repro_torch.core.store import MASK_META_DTYPE
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SHAPES = [(3, 64, 64), (2, 128, 256), (5, 96, 160), (4, 32, 512),
           (3, 50, 70), (2, 224, 224)]
@@ -396,6 +403,147 @@ def test_fused_verify_kernel_batch_sizes(cuda, b):
     _eq(ops.fused_bounds_verify(words, rois_q, lvs, uvs, dec, lb, pos), want)
     _eq(ops.fused_bounds_verify(words[pos].contiguous(), rois_q, lvs, uvs,
                                 dec, lb), want)
+
+
+# Q descriptors of the block-per-mask kernel: every register-free count
+# from one descriptor to a block of four warps eight times over
+MULTI_QS = (1, 2, 3, 4, 5, 8, 9, 17, 32)
+# range flag pairs, lv == uv (nothing counted) among them
+MULTI_RANGES = ((0.5, 1.5), (-0.5, 0.5), (0.0, 1.0), (0.5, 0.5),
+                (1.0, 1.5), (-0.5, 1.5))
+
+
+def _multi_case(rois, q, h, nw):
+    """q descriptors over the masks of ``rois``: the ROIs as given, empty
+    ROIs, full rows (0, 0, h, 32 nw) and the ROIs reversed in turn, with the
+    range flag pairs of MULTI_RANGES in turn."""
+    empty = rois.clone()
+    empty[:, 2] = empty[:, 0]
+    full = torch.tensor([0, 0, h, 32 * nw], dtype=torch.int32,
+                        device=rois.device).expand_as(rois)
+    pool = (rois, empty, full, rois.flip(0))
+    rois_q = torch.stack([pool[i % 4] for i in range(q)]) if q else \
+        rois.new_zeros((0,) + tuple(rois.shape))
+    lvs = np.float32([MULTI_RANGES[i % 6][0] for i in range(q)])
+    uvs = np.float32([MULTI_RANGES[i % 6][1] for i in range(q)])
+    return rois_q, lvs, uvs
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_cp_multi_packed_kernel_positions_and_q(cuda, shape, aligned):
+    """Q from 1 to 32 (empty and full-row ROIs, lv == uv among them), with
+    and without positions (repeated, unsorted, empty; on the card and as
+    host arrays staged with the flags), on aligned and misaligned planes;
+    one launch a call with anything to count."""
+    words, rois = _packed_inputs(shape, 41, cuda)
+    if not aligned:
+        words = _misaligned(words)
+    n, h, _ = shape
+    nw = words.shape[2]
+    for kind in POSITIONS:
+        pos = _pos(kind, n, cuda)
+        b = n if pos is None else len(pos)
+        for q in MULTI_QS + (0,):
+            rois_q, lvs, uvs = _multi_case(rois, q, h, nw)
+            rois_q = rois_q if pos is None else rois_q[:, pos]
+            want = ref.cp_count_multi_packed_ref(words, rois_q, lvs, uvs, pos)
+            before = ops.cp_count_multi_packed.launches
+            _eq(ops.cp_count_multi_packed(words, rois_q, lvs, uvs, pos), want)
+            assert ops.cp_count_multi_packed.launches == before + (b * q > 0)
+            host_pos = None if pos is None else pos.cpu().numpy()
+            _eq(ops.cp_count_multi_packed(words, rois_q.cpu().numpy(), lvs,
+                                          uvs, host_pos), want)
+
+
+def _fused_pass_rois(boxes, h, w):
+    """The scheduler pass's 8 descriptors over masks with object boxes
+    ``boxes`` (chip_smoke.py's ``fused_specs``): per-mask boxes, full image
+    twice, an off-grid box, the boxes again, a word column, a row band and
+    an empty ROI."""
+    b = len(boxes)
+
+    def const(r):
+        return np.tile(np.asarray(r, np.int32), (b, 1))
+
+    full = const([0, 0, h, w])
+    rois_q = np.stack([boxes, full, full, const([3, 5, h - 3, w - 1]),
+                       boxes, const([0, 32, h, 64]),
+                       const([h // 2 - 12, 0, h // 2 + 38, w]),
+                       const([10, 10, 10, 100])]).astype(np.int32)
+    lvs = np.float32([0.5, 0.5, -0.5, 0.5, 0.0, 0.5, 1.0, 0.5])
+    uvs = np.float32([1.5, 1.5, 0.5, 1.5, 1.0, 3.4e38, 1.5, 1.5])
+    return rois_q, lvs, uvs
+
+
+@pytest.mark.parametrize("b", [1, 7, 708, 4096])
+def test_cp_multi_packed_kernel_batch_sizes(cuda, b):
+    """B from one mask to 4,096 positions (with repeats) over a resident
+    224x224 array, Q = 8 as in the scheduler's fused pass: indexed with
+    host and with card positions, and the same batch gathered (every block
+    writes its entries once into an output that is never zeroed)."""
+    from repro_torch.core.packing import pack_masks
+    n, h, w = 300, 224, 224
+    rng = np.random.default_rng(b + 1)
+    words = torch.from_numpy(pack_masks(rng.random((n, h, w)) < 0.4).view(
+        np.int32)).to(cuda)
+    pos = rng.integers(0, n, b)
+    rois_q, lvs, uvs = _fused_pass_rois(object_boxes(b, h, w, seed=b), h, w)
+    want = ref.cp_count_multi_packed_ref(words, rois_q, lvs, uvs, pos)
+    _eq(ops.cp_count_multi_packed(words, rois_q, lvs, uvs, pos), want)
+    pos_d = torch.from_numpy(pos).to(cuda)
+    _eq(ops.cp_count_multi_packed(words, torch.from_numpy(rois_q).to(cuda),
+                                  lvs, uvs, pos_d), want)
+    _eq(ops.cp_count_multi_packed(words[pos_d].contiguous(), rois_q, lvs,
+                                  uvs), want)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cp_multi_packed_kernel_planes_past_shared_memory(cuda, aligned):
+    """Planes over 48 KB (400 rows of 35 words) are counted from device
+    memory directly, with and without positions."""
+    words, rois = _packed_inputs((3, 400, 1100), 43, cuda)
+    if not aligned:
+        words = _misaligned(words)
+    rois_q, lvs, uvs = _multi_case(rois, 9, 400, words.shape[2])
+    for kind in POSITIONS:
+        pos = _pos(kind, 3, cuda)
+        rq = rois_q if pos is None else rois_q[:, pos]
+        _eq(ops.cp_count_multi_packed(words, rq, lvs, uvs, pos),
+            ref.cp_count_multi_packed_ref(words, rq, lvs, uvs, pos))
+
+
+@pytest.mark.parametrize("bad", [-1, 5])
+def test_cp_multi_packed_position_out_of_range_traps(cuda, bad):
+    """A position outside [0, N) traps the kernel, as an index out of range
+    asserts: the launch's stream reports an error instead of counting some
+    other memory.  A trap spoils the process's CUDA context, so the call
+    runs in a child process."""
+    code = textwrap.dedent(f"""
+        import os
+        import numpy as np
+        import torch
+        from repro_torch.kernels import ops
+        words = torch.zeros((5, 8, 2), dtype=torch.int32, device="cuda")
+        rois = np.tile(np.int32([0, 0, 8, 64]), (1, 2, 1))
+        ops.cp_count_multi_packed(words, rois, [0.5], [1.5], [0, 4])
+        torch.cuda.synchronize()
+        print("in range: counted", flush=True)
+        try:
+            ops.cp_count_multi_packed(words, rois, [0.5], [1.5], [0, {bad}])
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            print("out of range: trapped,", err, flush=True)
+            os._exit(3)
+        print("out of range: no error", flush=True)
+        os._exit(0)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert "in range: counted" in out.stdout, out.stdout + out.stderr
+    assert out.returncode == 3, out.stdout + out.stderr
+    assert "out of range: trapped" in out.stdout
 
 
 @pytest.mark.parametrize("aligned", [True, False])

@@ -189,6 +189,40 @@ def test_fused_bounds_verify_positions_match_jax(w, pos, pattern):
                 interpret=True))
 
 
+@pytest.mark.parametrize("pos", list(POSITIONS))
+@pytest.mark.parametrize("w", (33, 40))
+def test_cp_count_multi_packed_positions_match_jax(w, pos):
+    """The Q-descriptor plain version reading ``packed[positions]``
+    (repeated, out of order, none) equals the JAX reference on the
+    gathered rows (unclipped and empty ROIs and lv == uv among the
+    descriptors), takes the positions as a tensor alike, and, for W = 40,
+    equals the Pallas kernel in interpret mode on clipped ROIs."""
+    packed = pack_masks(_binary((B, H, w), seed=17 * w))
+    positions = np.asarray(POSITIONS[pos], np.int64)
+    b = len(positions)
+    rois = np.stack([_edge_rois(B, H, w, seed=80 + i)[positions]
+                     for i in range(len(RANGES))])
+    lvs = np.asarray([r[0] for r in RANGES], np.float32)
+    uvs = np.asarray([r[1] for r in RANGES], np.float32)
+    got = ops.cp_count_multi_packed(_words(packed), rois, lvs, uvs,
+                                    positions)
+    assert got.dtype == torch.int32 and got.shape == (len(RANGES), b)
+    _eq(ops.cp_count_multi_packed(_words(packed), torch.from_numpy(rois),
+                                  lvs, uvs, torch.from_numpy(positions)), got)
+    if not b:
+        return
+    gathered = jnp.asarray(packed[positions])
+    _eq(got, jpk.cp_count_multi_packed_ref(gathered, jnp.asarray(rois), lvs,
+                                           uvs))
+    if w == 40:     # the Pallas tiling needs H to divide into row tiles
+        clipped = np.clip(rois, 0, [H, w, H, w])
+        _eq(ops.cp_count_multi_packed(_words(packed), clipped, lvs, uvs,
+                                      positions),
+            jpk.cp_count_multi_packed_pallas(
+                gathered, jnp.asarray(clipped), jnp.asarray(lvs),
+                jnp.asarray(uvs), interpret=True))
+
+
 def test_plain_versions_match_pallas_interpret():
     """One case per kernel against the Pallas body in interpret mode (the
     Pallas tiling needs H to divide into row tiles, so W = 40, H = 32)."""
@@ -550,6 +584,92 @@ def test_device_verification_reads_resident_words_in_place(packed_db,
     for packed, pos in seen:
         assert packed is resident and pos is not None
         assert pos.dtype == np.int64 and len(pos) > 0
+
+
+# the scheduler's fused-pass descriptors over ``_MULTI_POS`` (repeated and
+# out of order): per-mask boxes, the full image, an off-grid box with
+# lv == uv, columns past W, an empty ROI
+_MULTI_POS = np.array([23, 7, 7, 0, 16, 2, 9, 2])
+_MULTI_TERMS = [CP("provided", 0.5, 1.5), CP(None, -0.5, 0.5),
+                CP((3, 5, 29, 31), 0.5, 0.5), CP((0, 30, H, 64), 0.0, 1.0),
+                CP((4, 4, 4, 20), 0.5, 1.5)]
+
+
+def _multi_specs(rois):
+    n = len(_MULTI_POS)
+    return [(rois[_MULTI_POS], 0.5, 1.5), (np.tile([0, 0, H, W], (n, 1)),
+                                           -0.5, 0.5),
+            (np.tile([3, 5, 29, 31], (n, 1)), 0.5, 0.5),
+            (np.tile([0, 30, H, 64], (n, 1)), 0.0, 1.0),
+            (np.tile([4, 4, 4, 20], (n, 1)), 0.5, 1.5)]
+
+
+def _multi_step(step, backend, t, rois):
+    """The backend's packed Q-descriptor step over ``_MULTI_POS`` →
+    (Q, B) counts."""
+    if step == "fused_counts":
+        return np.asarray(backend.fused_counts(t, _MULTI_POS,
+                                               _multi_specs(rois)))
+    got = backend.verify_counts(MaskEvalContext(t, np.arange(B), rois),
+                                _MULTI_POS, _MULTI_TERMS)
+    return np.stack([got[term] for term in _MULTI_TERMS])
+
+
+@pytest.mark.parametrize("step", ["fused_counts", "verify_counts"])
+def test_device_multi_count_steps_read_resident_words_in_place(
+        packed_db, monkeypatch, step):
+    """The device backend's packed Q-descriptor steps (the scheduler's
+    fused pass and ``verify_counts``) hand the kernel the resident words
+    with the batch's host int64 positions, repeated and out of order, and
+    gather nothing; the counts equal the host backend's and, for the
+    fused pass, the JAX package's."""
+    j, t, _, rois = packed_db
+    resident = get_backend(t, "device")._masks
+    want = _multi_step(step, get_backend(t, "host"), t, rois)
+    if step == "fused_counts":
+        _eq(want, jget_backend(j, "host").fused_counts(j, _MULTI_POS,
+                                                       _multi_specs(rois)))
+    seen = []
+    plain = ops.cp_count_multi_packed.plain
+
+    def spy(packed, *args):
+        seen.append((packed, args[3] if len(args) > 3 else None))
+        return plain(packed, *args)
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the multi-count step gathered rows")
+    monkeypatch.setattr(ops.cp_count_multi_packed, "plain", spy)
+    monkeypatch.setattr(torch.Tensor, "index_select", no_gather)
+    got = _multi_step(step, get_backend(t, "device"), t, rois)
+    monkeypatch.undo()
+    _eq(got, want)
+    assert len(seen) == 1
+    packed, pos = seen[0]
+    assert packed is resident
+    assert isinstance(pos, np.ndarray) and pos.dtype == np.int64
+    _eq(pos, _MULTI_POS)
+
+
+def test_host_fused_counts_counts_the_rows_it_loaded(packed_db,
+                                                     monkeypatch):
+    """The host backend's fused pass calls the kernel on the rows it
+    loaded, one per position, with no positions."""
+    _, t, _, rois = packed_db
+    seen = []
+    plain = ops.cp_count_multi_packed.plain
+
+    def spy(packed, *args):
+        seen.append((packed, args[3] if len(args) > 3 else None))
+        return plain(packed, *args)
+    monkeypatch.setattr(ops.cp_count_multi_packed, "plain", spy)
+    _multi_step("fused_counts", get_backend(t, "host"), t, rois)
+    monkeypatch.undo()
+    assert len(seen) == 1
+    packed, pos = seen[0]
+    assert pos is None
+    assert packed is not get_backend(t, "device")._masks
+    assert tuple(packed.shape) == (len(_MULTI_POS),) + tuple(
+        t.device_masks().shape[1:])
 
 
 def _dispatches(kernel):
