@@ -27,7 +27,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    array) against the gather + kernel it replaced;
 5. run a 64-mask store (32 saliency/attention pairs) through the same
    queries and four pair queries on the card and on the CPU (plain kernel
-   versions) and require identical answers;
+   versions) and require identical answers; then serve the float store
+   with the query service on the device backend (``MaskSearchService``
+   behind the threaded HTTP server): the four queries one-shot (first and
+   repeat, the repeat a cache hit that loads nothing) equal to phase 3 and
+   the naive scans, a paged session equal to the one-shot ``LIMIT 100``, a
+   fused ``/workload`` of 8 overlapping CP rankings, ``EXPLAIN ANALYZE``
+   against ``ExecStats``, 4 tenants x 16 requests on the async tier, an
+   ingest of 2,048 masks and an update of 64 of them (then queries equal
+   to the naive scan of the grown store), and ``/metrics`` through
+   ``benchmarks/check_prometheus.py``;
 6. the packed path: 65,536 binary masks (``saliency_masks > 0.5``, made
    chunk by chunk in worker processes) ingested into a packed ``MaskStore``
    on the card, the packed filter, top-k and refine queries and
@@ -35,7 +44,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and one ``fused_counts`` pass per backend; device == host == naive scan,
    ``fused_bounds_verify`` launched once per verification round, and the
    same queries on a float store of the first chunk give the packed
-   store's answers;
+   store's answers; then the packed store behind the service: the packed
+   filter, top-k and ``SCENARIO3_IOU`` one-shot and a ``/workload`` of 8
+   overlapping packed CP rankings, with the fused passes' descriptors per
+   pass;
 7. the four popcount kernels against their plain versions (main-path
    inputs and edge cases, positions and misaligned planes among them;
    for ``cp_count_multi_packed`` also Q from 1 to 32, B from 1 to 4,096,
@@ -52,7 +64,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ranking on the device and host backends and as naive scans: device ==
    host == naive scan, the pair kernel launched once per verification round
    and naive scan, and a float store of the first binary chunk gives the
-   packed store's answers;
+   packed store's answers; then each leg behind the service with a
+   ``/workload`` of the four pair queries, equal to the engine's answers;
 9. the two pair kernels against their plain versions (main-path inputs and
    edge cases, tolerance 0) and timed beside their bounds and sector
    floors; ``pair_counts_packed`` also as a device round runs it (both
@@ -62,6 +75,11 @@ Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
 carry ``cp_count_packed`` and the pair kernels' largest calls) and read
 just after it; every kernel of that path must have been launched there.
+Each service window (float, packed, pair) is a path of its own: its
+counters are zeroed at its start, printed on a ``service launches`` line
+at its end, and every kernel the service runs there must have launched.
+The engine runs and naive scans that a window's answers are held to run
+before it opens or after it closes, so its counts are the service's own.
 The script prints the build, the card, the launch floor (the device time
 of an empty kernel), per-query times and stats, a
 ``{"kernels": [...]}`` line and, last, the result line
@@ -77,6 +95,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1142,7 +1161,9 @@ def packed_phase(torch, dev, n, floor_ms):
             fail(f"packed vs float store, first chunk: {qname} differs")
     print(f"packed check: the four queries on {len(first)} masks give the "
           f"same ids and scores from a packed and a float store")
-    del store, results, naive, fl, pk
+    del fl, pk
+    service_packed_phase(tq, ops, store, provided, sqls, results, naive)
+    del store, results, naive
 
     # -- 7. the popcount kernels against their plain versions ---------------
     n_edge = packed_edge_cases(torch, ops, ref, pack_masks, dev)
@@ -1367,7 +1388,9 @@ def pair_phase(torch, dev, n_images, floor_ms):
             fail(f"pair packed vs float store, first chunk: {qname} differs")
     print(f"pair check: the four queries on {len(first) // 2} images give the "
           f"same ids and scores from a packed and a float store")
-    del legs, fl, pk
+    del fl, pk
+    service_pair_phase(tq, ops, legs, provided, sqls)
+    del legs
 
     # -- 9. the pair kernels against their plain versions ------------------
     n_edge = pair_edge_cases(torch, ops, ref, pack_masks, dev)
@@ -1381,6 +1404,360 @@ def pair_phase(torch, dev, n_images, floor_ms):
         n_edge[name], lambda name, a: pair_bound_of(torch, ref, name, a, rate),
         floor_ms if name == "pair_counts_packed" else None)
         for name in PAIR_KERNELS]
+
+
+# -- the query service on the card ---------------------------------------------
+
+def serve_http(service):
+    """The threaded HTTP front on port 0 → (httpd, thread, base url)."""
+    from repro_torch.service import make_server
+    httpd = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    host, port = httpd.server_address[:2]
+    return httpd, thread, f"http://{host}:{port}"
+
+
+def stop_http(httpd, thread) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=30)
+
+
+def timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def payload_is(payload, want) -> bool:
+    """A service JSON payload's ids (and scores) equal an engine answer."""
+    if isinstance(want, tuple):
+        return (payload["ids"] == np.asarray(want[0]).tolist() and
+                payload["scores"] == np.asarray(want[1],
+                                                np.float64).tolist())
+    return payload["ids"] == np.asarray(want).tolist()
+
+
+def fused_passes(service, name="scheduler.fused_pass") -> list:
+    """(descriptors, union masks or pairs) of each fused pass in the
+    service's last trace."""
+    return [(sp.attrs["descriptors"],
+             sp.attrs.get("union_masks", sp.attrs.get("union_pairs")))
+            for sp in service.tracer.last_trace().walk() if sp.name == name]
+
+
+def q_histogram(passes) -> str:
+    counts: dict = {}
+    for q, _ in passes:
+        counts[q] = counts.get(q, 0) + 1
+    return ", ".join(f"Q={q}: {n}" for q, n in sorted(counts.items()))
+
+
+def close_window(ops, label, needed, t0) -> None:
+    """Read the launch counters a service window zeroed at its start;
+    every kernel of ``needed`` must have launched in it."""
+    counts = ops.launch_counts()
+    print(f"service launches {label}: "
+          + json.dumps({k: v for k, v in counts.items() if v}))
+    for k in needed:
+        if counts[k] <= 0:
+            fail(f"kernel {k} was not launched in the {label} service window")
+    print(f"service phase {label}: {time.perf_counter() - t0:.1f} s")
+
+
+def workload_answers(tq, store, sqls, rois) -> list:
+    """The engine's one-shot answer to each of ``sqls`` on the device
+    backend: the references of a /workload, computed outside the service
+    window so that its launch counts are the service's own."""
+    return [tq.run(sql, store, provided_rois=rois, backend="device")[0]
+            for sql in sqls]
+
+
+def check_workload(client, sqls, wants, label) -> None:
+    """A /workload of ``sqls``: each answer equals its one-shot answer
+    ``wants`` (from ``workload_answers``)."""
+    out, secs = timed(client.workload, sqls)
+    for sql, payload, want in zip(sqls, out, wants):
+        if not payload_is(payload, want):
+            fail(f"{label} workload: {sql!r} differs from its one-shot answer")
+    print(f"{label} workload: {len(sqls)} queries in {secs:.3f} s, each "
+          f"equal to its one-shot answer")
+
+
+def float_sqls() -> list:
+    """8 overlapping CP rankings for the /workload: the per-mask box at
+    four value ranges, the full image at two, two rankings by area share."""
+    cp = "SELECT mask_id FROM MasksDatabaseView ORDER BY "
+    return ([f"{cp}CP(mask, roi, ({lv}, 1.0)) / AREA(roi) ASC LIMIT 25;"
+             for lv in (0.6, 0.7, 0.8, 0.9)]
+            + [f"{cp}CP(mask, full_img, ({lv}, 0.6)) DESC LIMIT 25;"
+               for lv in (0.2, 0.3)]
+            + [f"{cp}CP(mask, roi, (0.5, 1.0)) DESC LIMIT 40;",
+               f"{cp}CP(mask, full_img, (0.8, 1.0)) ASC LIMIT 25;"])
+
+
+def tenant_sql(t, i) -> str:
+    """Request ``i`` of tenant ``t``: a ranking no other request sends."""
+    return ("SELECT mask_id FROM MasksDatabaseView ORDER BY CP(mask, roi, "
+            f"({0.5 + 0.025 * i:.3f}, 1.0)) / AREA(roi) ASC "
+            f"LIMIT {20 + t};")
+
+
+def tenant_load(base, n_tenants, n_requests):
+    """``n_tenants`` threads, each sending ``n_requests`` queries to the
+    async tier under its own X-Tenant → ({(t, i): ids}, latencies s)."""
+    import urllib.request
+    answers: dict = {}
+    lat: list = []
+    lock = threading.Lock()
+
+    def tenant(t):
+        for i in range(n_requests):
+            req = urllib.request.Request(
+                base + "/v1/query",
+                data=json.dumps({"sql": tenant_sql(t, i)}).encode(),
+                headers={"Content-Type": "application/json",
+                         "X-Tenant": f"tenant-{t}"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                body = json.loads(resp.read())
+            with lock:
+                lat.append(time.perf_counter() - t0)
+                answers[(t, i)] = body
+    threads = [threading.Thread(target=tenant, args=(t,))
+               for t in range(n_tenants)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if len(answers) != n_tenants * n_requests:
+        fail("concurrent service load: a tenant thread failed")
+    return answers, lat
+
+
+def service_float_phase(torch, tq, ops, masks_mod, store, rois, results,
+                        naive, smi):
+    """The float store behind the service, on the device backend: the main
+    queries one-shot over HTTP (first and repeat), a paged session, a
+    fused /workload, EXPLAIN ANALYZE, 4 tenants x 16 requests on the async
+    tier, an ingest of 2,048 masks and an update of 64, and the /metrics
+    text; one launch window.  The engine runs and naive scans that the
+    service's answers are held to run outside the window (before it, or
+    after it for the grown store), so its counts are the service's own."""
+    from repro_torch.core import build_chi_np
+    from repro_torch.service import MaskSearchService, ServiceClient
+    from repro_torch.service.asyncserver import serve_in_thread
+
+    n = len(store)
+    n_new = CHUNK
+    new_rois = masks_mod.object_boxes(n_new, H, W, seed=12)
+    new, _ = masks_mod.saliency_masks(n_new, H, W, seed=11,
+                                      attacked_fraction=0.15, boxes=new_rois)
+    # default ROIs for the masks to come too (positions index them)
+    all_rois = np.concatenate([rois, new_rois])
+    workload_wants = workload_answers(tq, store, float_sqls(), all_rois)
+    tenant_wants = {(t, i): tq.run(tenant_sql(t, i), store,
+                                   provided_rois=all_rois,
+                                   backend="device")[0]
+                    for t in range(4) for i in range(16)}
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    service = MaskSearchService(store, provided_rois=all_rois,
+                                backend="device", trace=True)
+    httpd, thread, base = serve_http(service)
+    client = ServiceClient(base, timeout=600)
+
+    for qname, sql in sql_set(tq):
+        first, t_first = timed(client.query, sql)
+        repeat, t_rep = timed(client.query, sql)
+        want = results[(qname, "device")][0]
+        if not (payload_is(first, want) and payload_is(first,
+                                                       naive[qname][0])):
+            fail(f"service {qname}: answer differs from the engine's and "
+                 f"the naive scan's")
+        if not (repeat["cache_hit"] and repeat["stats"]["bytes_loaded"] == 0
+                and repeat["ids"] == first["ids"]):
+            fail(f"service {qname}: the repeat is not a zero-load cache hit")
+        print(f"service query {qname}: first {t_first:.3f} s, repeat "
+              f"{t_rep:.3f} s (cache hit, 0 bytes loaded); "
+              f"{len(first['ids'])} ids equal to phase 3 and the naive scan, "
+              + json.dumps({k: first["stats"][k] for k in (
+                  "n_candidates", "n_decided_by_bounds", "n_verified",
+                  "n_rounds")}))
+
+    # a paged session concatenates to the one-shot LIMIT 4k
+    k = 25
+    sess = client.query(tq.SCENARIO2_TOPK, session=True, page_size=k)
+    pages = [sess["page"]["ids"]]
+    for _ in range(3):
+        sess = client.next_page(sess["session"])
+        pages.append(sess["page"]["ids"])
+    whole = client.query(tq.SCENARIO2_TOPK.replace(f"LIMIT {k}",
+                                                   f"LIMIT {4 * k}"))
+    if sum(pages, []) != whole["ids"]:
+        fail("service session: 4 pages differ from the one-shot LIMIT 100")
+    print(f"service session: 4 pages of {k} equal the one-shot LIMIT {4 * k}")
+
+    s0 = service.scheduler.stats.as_dict()
+    check_workload(client, float_sqls(), workload_wants, "service float")
+    s1 = service.scheduler.stats.as_dict()
+    passes = fused_passes(service)
+    d = {f: s1[f] - s0[f] for f in ("rounds", "fused_passes",
+                                    "fused_descriptors", "fused_masks")}
+    print(f"service float workload scheduler: {json.dumps(d)}; descriptors "
+          f"per pass {q_histogram(passes)}; union masks per pass "
+          f"{[m for _, m in passes]}")
+
+    rep = client.query("EXPLAIN ANALYZE " + tq.SCENARIO1_TOPK)
+    st = rep["tree"]["stats"]
+    want = results[("scenario1_topk", "device")][1]
+    got = (st["candidates"], st["decided_by_bounds"], st["verified"])
+    if got != (want.n_candidates, want.n_decided_by_bounds, want.n_verified):
+        fail(f"EXPLAIN ANALYZE scenario1_topk: {got} differs from ExecStats")
+    print(f"service EXPLAIN ANALYZE scenario1_topk: candidates, decided by "
+          f"bounds, verified {got} equal to the run's ExecStats")
+
+    # 4 tenants x 16 requests on the async tier, from threads
+    handle = serve_in_thread(service)
+    c0 = service.scheduler.stats.cross_tenant_passes
+    (answers, lat), secs = timed(tenant_load, handle.base_url, 4, 16)
+    handle.stop()
+    for (t, i), body in answers.items():
+        if not payload_is(body, tenant_wants[(t, i)]):
+            fail(f"async tier: tenant {t} request {i} differs from its "
+                 f"one-shot answer")
+    p50, p95 = np.percentile(np.asarray(lat) * 1e3, [50, 95])
+    print(f"service async tier: 4 tenants x 16 requests in {secs:.3f} s, "
+          f"each equal to its one-shot answer; request latency p50 "
+          f"{p50:.1f} ms, p95 {p95:.1f} ms; cross-tenant fused passes "
+          f"{service.scheduler.stats.cross_tenant_passes - c0} ({smi})")
+
+    # ingest a chunk, then replace 64 of its rows
+    ids = np.arange(n, n + n_new)
+    out, t_app = timed(service.ingest, new, mask_ids=ids, image_ids=ids // 2,
+                       mask_types=ids % 2 + 1)
+    torch.cuda.synchronize()
+    upd, t_upd = timed(service.ingest, new[64:128], mask_ids=ids[:64],
+                       on_conflict="update")
+    torch.cuda.synchronize()
+    if (out["appended"], upd["updated"], len(store)) != (n_new, 64,
+                                                         n + n_new):
+        fail(f"service ingest: {out}, {upd}")
+    pos = np.arange(n, n + 64)
+    if not np.array_equal(store.device_masks()[n:n + 64].cpu().numpy(),
+                          new[64:128]):
+        fail("service update: the card's rows differ from the new masks")
+    if not np.array_equal(store.chi_host(pos), build_chi_np(new[64:128],
+                                                            store.cfg)):
+        fail("service update: CHI rows differ from build_chi_np")
+    grown = {qname: (sql, client.query(sql)) for qname, sql in (
+        ("scenario1_topk", tq.SCENARIO1_TOPK),
+        ("scenario2_topk", tq.SCENARIO2_TOPK))}
+    print(f"service ingest: append of {n_new} masks {t_app:.3f} s, update "
+          f"of 64 rows {t_upd:.3f} s (epoch {upd['epoch']}); updated rows and "
+          f"CHI on the card equal the new masks")
+
+    text = client.metrics()
+    check = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "benchmarks",
+                                      "check_prometheus.py"),
+         "--require", "masksearch_queries_total",
+         "--require", "masksearch_kernel_launches_total",
+         "--require", "masksearch_jit_compiles_total"],
+        input=text, capture_output=True, text=True, timeout=120)
+    if check.returncode != 0:
+        fail(f"/metrics: check_prometheus.py: {check.stdout}{check.stderr}")
+    print(f"service /metrics: {len(text.splitlines())} lines pass "
+          f"check_prometheus.py")
+    stop_http(httpd, thread)
+    service.close()
+    close_window(ops, "float", ("cp_count_multi", "chi_cell_hist",
+                                "mask_agg_counts"), t0)
+    for qname, (sql, got) in grown.items():
+        scan, _ = tq.run(sql, store, provided_rois=all_rois, use_index=False)
+        if not payload_is(got, scan):
+            fail(f"service {qname} after ingest: differs from the naive scan")
+    print(f"service after ingest: scenario1_topk and scenario2_topk on "
+          f"{len(store)} masks equal the naive scan")
+
+
+def packed_service_sqls() -> list:
+    """8 overlapping packed CP rankings: four ROIs, ones and zeros.  The
+    four zero-count rankings (``(-0.5, 0.5)`` ASC) get a lower bound of 0
+    on every mask: the zeros sit in CHI's open bottom bin ``[-inf, 1/16)``,
+    which no range with a finite ``lv`` holds whole, and an ascending top-k
+    stops only on lower bounds, so it verifies every mask (the descending
+    rankings stop on their upper bounds, which count the end bins)."""
+    out = []
+    for roi in ("roi", "full_img", "(3, 5, 221, 223)", "(0, 32, 224, 64)"):
+        for rng, order in (("(0.5, 1.5)", "DESC"), ("(-0.5, 0.5)", "ASC")):
+            out.append("SELECT mask_id FROM MasksDatabaseView ORDER BY "
+                       f"CP(mask, {roi}, {rng}) {order} LIMIT 25;")
+    return out
+
+
+def service_packed_phase(tq, ops, store, provided, sqls, results, naive):
+    """The packed store behind the service, on the device backend: the
+    packed filter, top-k and SCENARIO3_IOU one-shot, a /workload of 8
+    overlapping packed CP rankings with the fused passes' descriptors per
+    pass; one launch window."""
+    from repro_torch.service import MaskSearchService, ServiceClient
+    workload_wants = workload_answers(tq, store, packed_service_sqls(),
+                                      provided)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    service = MaskSearchService(store, provided_rois=provided,
+                                backend="device", trace=True)
+    httpd, thread, base = serve_http(service)
+    client = ServiceClient(base, timeout=600)
+    for qname, sql in sqls:
+        if qname == "packed_refine":
+            continue
+        got, secs = timed(client.query, sql)
+        if not (payload_is(got, results[(qname, "device")][0]) and
+                payload_is(got, naive[qname][0])):
+            fail(f"packed service {qname}: differs from the engine's and "
+                 f"the naive scan's answers")
+        print(f"packed service query {qname}: {secs:.3f} s, "
+              f"{len(got['ids'])} ids equal to phase 6 and the naive scan")
+    check_workload(client, packed_service_sqls(), workload_wants,
+                   "packed service")
+    passes = fused_passes(service)
+    print(f"packed service workload: {len(passes)} fused passes, descriptors "
+          f"per pass {q_histogram(passes)}; union masks per pass "
+          f"{[m for _, m in passes]}")
+    stop_http(httpd, thread)
+    service.close()
+    close_window(ops, "packed", ("cp_count_multi_packed",
+                                 "mask_agg_counts_packed",
+                                 "fused_bounds_verify"), t0)
+
+
+def service_pair_phase(tq, ops, legs, provided, sqls):
+    """Each pair leg behind the service, on the device backend: a /workload
+    of the four pair queries, each equal to phase 8's answer; one launch
+    window over both legs."""
+    from repro_torch.service import MaskSearchService, ServiceClient
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    for leg, (store, _, _, results, _) in legs.items():
+        service = MaskSearchService(store, provided_rois=provided,
+                                    backend="device", trace=True)
+        httpd, thread, base = serve_http(service)
+        out, secs = timed(ServiceClient(base, timeout=600).workload,
+                          [sql for _, sql in sqls])
+        for (qname, _), payload in zip(sqls, out):
+            if not payload_is(payload, results[(qname, "device")][0]):
+                fail(f"pair {leg} service {qname}: differs from phase 8")
+        passes = fused_passes(service, "scheduler.pair_pass")
+        print(f"pair {leg} service workload: 4 pair queries in {secs:.3f} s, "
+              f"each equal to phase 8; {len(passes)} pair passes, "
+              f"descriptors per pass {q_histogram(passes)}")
+        stop_http(httpd, thread)
+        service.close()
+    close_window(ops, "pair", PAIR_KERNELS, t0)
 
 
 def main() -> int:
@@ -1510,7 +1887,12 @@ def main() -> int:
           f"{len(sm_sqls)} queries (four pair queries among them), and the "
           f"four pair queries on a packed store of the same masks binarised, "
           f"identical on the card (device and host backends) and on the CPU")
-    del store, masks, results, largest, stores
+    del largest, stores
+
+    # -- 5b. the query service over the float store -------------------------
+    service_float_phase(torch, tq, ops, masks_mod, store, provided, results,
+                        naive, smi)
+    del store, masks, results, naive
     torch.cuda.empty_cache()
 
     # -- 6-7. the packed path, then its kernels -----------------------------

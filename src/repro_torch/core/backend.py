@@ -597,19 +597,22 @@ _NAMED = {"device": DeviceBackend}
 
 
 def host_backend() -> HostBackend:
-    """The stateless host backend singleton (the default everywhere)."""
+    """The stateless host backend singleton (the default on a CPU store)."""
     return _HOST
 
 
 def get_backend(store, backend=None) -> ExecBackend:
     """Resolve a backend spec against a store.
 
-    ``backend`` is ``None``/``"host"`` (default), a backend *name*
-    (``"device"`` — instances are cached per store, so the resident
-    mask/CHI upload happens once), or an :class:`ExecBackend` instance.
-    The mesh backend comes with the mesh slice.
+    ``backend`` is ``None`` (the store's own device decides: the device
+    backend on a CUDA store, the host backend otherwise), ``"host"``, a
+    backend *name* (``"device"`` — instances are cached per store, so the
+    resident mask/CHI upload happens once), or an :class:`ExecBackend`
+    instance.  The mesh backend comes with the mesh slice.
     """
-    if backend is None or backend == "host":
+    if backend is None:
+        backend = "device" if _device_of(store).type == "cuda" else "host"
+    if backend == "host":
         _BACKEND_RESOLUTIONS.labels(backend="host").inc()
         return _HOST
     if isinstance(backend, ExecBackend):

@@ -603,7 +603,10 @@ class MaskEvalContext:
         # Device the host path's verification kernels run on: the store's.
         self.device = getattr(store, "device", torch.device("cpu"))
         self._loaded: Optional[np.ndarray] = None  # aligned with positions
-        self._rows: list = []
+        # Loaded rows live in one buffer grown by doubling (capped at the
+        # candidate count), so a run that loads in many rounds copies each
+        # row O(1) times amortized; _loaded maps a candidate to its row.
+        self._buf: Optional[np.ndarray] = None
         self._rows_used = 0
 
     def resolve_rois(self, roi, store_positions: np.ndarray) -> np.ndarray:
@@ -619,12 +622,18 @@ class MaskEvalContext:
         missing = idx[self._loaded[idx] < 0]
         if len(missing):
             new = self.store.load(self.positions[missing])
+            end = self._rows_used + len(new)
+            if self._buf is None or end > len(self._buf):
+                old = 0 if self._buf is None else len(self._buf)
+                cap = max(end, min(2 * old, len(self.positions)))
+                grown = np.empty((cap,) + new.shape[1:], new.dtype)
+                if self._buf is not None:
+                    grown[:self._rows_used] = self._buf[:self._rows_used]
+                self._buf = grown
+            self._buf[self._rows_used:end] = new
             self._loaded[missing] = self._rows_used + np.arange(len(missing))
-            self._rows.append(new)             # amortized growth (no O(n²))
-            self._rows_used += len(missing)
-        if len(self._rows) > 1:
-            self._rows = [np.concatenate(self._rows, axis=0)]
-        return self._rows[0][self._loaded[idx]]
+            self._rows_used = end
+        return self._buf[self._loaded[idx]]
 
     def _can_partial(self, node) -> bool:
         return (self.partial_rows and self._loaded is None and

@@ -248,7 +248,8 @@ def compile_plan(store, plan: LogicalPlan, *, provided_rois=None,
     ``positions`` restricts the candidate set to explicit store rows;
     ``bounds`` is the legacy precomputed ``(lb, ub)`` pair for a
     single-expression filter/top-k plan.  ``backend`` selects the physical
-    execution layer (``None``/``"host"``, ``"device"``, or an
+    execution layer (``"host"``, ``"device"``, ``None`` for the store's
+    own device — the device backend on a CUDA store, else the host — or an
     :class:`repro_torch.core.backend.ExecBackend` instance); every backend
     returns identical results.
     """

@@ -169,11 +169,16 @@ class Query:
         the flat front-end: filter → ``(ids, stats)``, rankings →
         ``((ids, scores), stats)``, scalar agg → ``(value, stats)``.
 
-        ``EXPLAIN [ANALYZE]`` parses, but its report (``obs/explain.py``)
-        is ported with the service slice; running one raises."""
+        A query parsed from ``EXPLAIN <sql>`` returns the logical operator
+        tree (not executed); ``EXPLAIN ANALYZE <sql>`` executes under a
+        forced-on tracer and returns the annotated report dict (see
+        :mod:`repro_torch.obs.explain`)."""
         if self.explain is not None:
-            raise NotImplementedError(
-                "EXPLAIN [ANALYZE] is ported with the service slice")
+            from ..obs import explain as explain_mod
+            if self.explain == "plan":
+                return explain_mod.explain_plan(self.sync_plan())
+            return explain_mod.explain_analyze(
+                store, self.sync_plan(), provided_rois=provided_rois, **kw)
         return plan_lib.run_plan(store, self.sync_plan(),
                                  provided_rois=provided_rois,
                                  use_index=use_index, **kw)

@@ -55,6 +55,10 @@ _BUILDS = _REG.counter(
     "masksearch_jit_compiles_total",
     "Kernel builds per wrapper (nvcc compiles of its CUDA source)",
     ("kernel",))
+for _kernels in SOURCES.values():
+    for _kernel in _kernels:
+        # exported at 0 until a build, as the JAX package's counter is
+        _BUILDS.labels(kernel=_kernel)
 
 # Element types the kernels take, and elements per 16-byte vector load.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

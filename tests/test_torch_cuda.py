@@ -641,3 +641,71 @@ def test_packed_store_and_queries_match_cpu(cuda):
         scan, _ = queries.run(sql, stores["cuda"], provided_rois=rois,
                               use_index=False)
         np.testing.assert_array_equal(scan[0], want[0])
+
+
+# -- the query service on the card ---------------------------------------------
+
+def test_service_on_the_card_matches_cpu(cuda):
+    """A 64-mask card store and its CPU twin, each behind the async tier;
+    4 client threads send the four main queries, a paged session and a
+    fused workload to both.  The card store's default backend is the
+    device backend, the twin's the host backend: answers must be equal."""
+    import threading
+
+    from repro_torch.core import get_backend
+    from repro_torch.service import MaskSearchService, ServiceClient
+    from repro_torch.service.asyncserver import serve_in_thread
+    from repro_torch.service.server import _synthetic_store
+
+    fronts = {}
+    for d in ("cpu", "cuda"):
+        store, rois = _synthetic_store(64, 64, device=d)
+        service = MaskSearchService(store, provided_rois=rois)
+        fronts[d] = (service, serve_in_thread(service))
+    assert get_backend(fronts["cuda"][0].store, None).name == "device"
+    assert fronts["cuda"][0].stats()["backend"] == "device"
+    assert fronts["cpu"][0].stats()["backend"] == "host"
+    topk = ("SELECT mask_id FROM MasksDatabaseView ORDER BY "
+            "CP(mask, full_img, (0.2, 0.6)) DESC LIMIT 4;")
+    sqls = ["SELECT mask_id FROM MasksDatabaseView WHERE "
+            "CP(mask, roi, (0.8, 1.0)) / AREA(roi) < 0.02;",
+            queries.SCENARIO1_TOPK, queries.SCENARIO2_TOPK,
+            queries.SCENARIO3_IOU]
+    workload = ["SELECT mask_id FROM MasksDatabaseView ORDER BY "
+                f"CP(mask, full_img, ({lv}, {lv + 0.4})) DESC LIMIT 9;"
+                for lv in (0.1, 0.15, 0.2, 0.25)]
+
+    def client_work(base, out, i):
+        c = ServiceClient(base, timeout=120)
+        got = [(r.get("ids"), r.get("scores"))
+               for r in (c.query(sql) for sql in sqls)]
+        sess = c.query(topk, session=True, page_size=4)
+        pages = [sess["page"]["ids"]]
+        for _ in range(2):
+            sess = c.next_page(sess["session"])
+            pages.append(sess["page"]["ids"])
+        got.append(pages)
+        got.append([(r["ids"], r["scores"]) for r in c.workload(workload)])
+        out[i] = got
+
+    answers = {}
+    try:
+        for d, (_, handle) in fronts.items():
+            out: dict = {}
+            threads = [threading.Thread(target=client_work,
+                                        args=(handle.base_url, out, i))
+                       for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert len(out) == 4, f"{d}: a client thread failed"
+            answers[d] = out
+    finally:
+        for service, handle in fronts.values():
+            handle.stop()
+            service.close()
+    for i in range(4):
+        assert answers["cuda"][i] == answers["cpu"][i]
+        assert answers["cuda"][i] == answers["cuda"][0]
+    assert fronts["cuda"][0].scheduler.stats.fused_passes > 0

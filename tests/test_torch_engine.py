@@ -9,6 +9,7 @@ equality is exact.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -307,12 +308,74 @@ def test_scenario6_pair_query_matches_jax(db, backend):
         assert getattr(gst, f) == getattr(wst, f), f
 
 
-def test_later_slices_raise_not_implemented(db):
-    """EXPLAIN parses and compiles up to the point where the explain
-    renderer of a later slice would run, then raises."""
-    _, t, rois = db
-    with pytest.raises(NotImplementedError):
-        tq.run("EXPLAIN " + jq.SCENARIO2_TOPK, t)
+def _untimed(x):
+    """An EXPLAIN report without its timings (wall-clock readings) and
+    query ids (the process-wide tracer's counter)."""
+    if isinstance(x, dict):
+        return {k: "<qid>" if k == "query_id" else _untimed(v)
+                for k, v in x.items()
+                if k not in ("dur_s", "time_s", "ts", "dur")
+                and not k.endswith("_time_s")}
+    if isinstance(x, list):
+        return [_untimed(v) for v in x]
+    if isinstance(x, str):
+        return re.sub(r"(\w*time_s)=[^\s\]]+", r"\1=<t>", x)
+    return x
+
+
+@pytest.mark.parametrize("backend", ["host", "device"])
+def test_explain_matches_jax(db, backend):
+    """``EXPLAIN`` (the plan tree, not executed) and ``EXPLAIN ANALYZE``
+    (the annotated tree, its stats, text and trace) of the same SQL give
+    the JAX package's reports, timings removed."""
+    j, t, rois = db
+    for sql in (jq.SCENARIO2_TOPK, jq.SCENARIO3_IOU, MORE[0]):
+        for prefix in ("EXPLAIN ", "EXPLAIN ANALYZE "):
+            want = jq.run(prefix + sql, j, provided_rois=rois,
+                          backend=backend, verify_batch=7)
+            got = tq.run(prefix + sql, t, provided_rois=rois,
+                         backend=backend, verify_batch=7)
+            assert got["analyzed"] == (prefix == "EXPLAIN ANALYZE ")
+            assert _untimed(got) == _untimed(want), prefix + sql
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_multi_round_mask_agg_loads_like_jax(packed, monkeypatch):
+    """``SCENARIO3_IOU`` on the host backend in 16 rounds of 4 groups: ids,
+    scores and ``ExecStats`` (bytes loaded among them) equal the JAX
+    package's, and every row ``MaskEvalContext.masks_for`` returns equals
+    ``store.load`` of its position."""
+    n, h, w = 128, 32, 32
+    rois = object_boxes(n, h, w, seed=3)
+    masks, _ = saliency_masks(n, h, w, seed=2, attacked_fraction=0.2,
+                              boxes=rois)
+    if packed:
+        masks = (masks > 0.5).astype(np.float32)
+    meta = np.zeros(n, MASK_META_DTYPE)
+    meta["mask_id"] = np.arange(n)
+    meta["image_id"] = np.arange(n) // 2
+    meta["mask_type"] = np.arange(n) % 2 + 1
+    cfg = dict(grid=8, num_bins=8, height=h, width=w)
+    j = JStore.create_memory(masks, meta, JCfg(**cfg), packed=packed)
+    t = TStore.create_memory(masks, meta, TCfg(**cfg), packed=packed,
+                             device="cpu")
+    calls = []
+    masks_for = MaskEvalContext.masks_for
+
+    def spy(ctx, idx):
+        rows = masks_for(ctx, idx)
+        calls.append((ctx, np.array(idx), rows.copy()))
+        return rows
+    monkeypatch.setattr(MaskEvalContext, "masks_for", spy)
+    want = jq.run(jq.SCENARIO3_IOU, j, provided_rois=rois, backend="host",
+                  verify_batch=4)
+    got = tq.run(jq.SCENARIO3_IOU, t, provided_rois=rois, backend="host",
+                 verify_batch=4)
+    _assert_same(got, want, f"packed={packed}")
+    # two MASK_AGG terms (intersection and union) read each round's rows
+    assert got[1].n_rounds >= 8 and len(calls) == 2 * got[1].n_rounds
+    for ctx, idx, rows in calls:
+        np.testing.assert_array_equal(rows, t.load(ctx.positions[idx]))
 
 
 def test_port_imports_no_jax_and_no_reference_package():
