@@ -80,6 +80,19 @@ counters are zeroed at its start, printed on a ``service launches`` line
 at its end, and every kernel the service runs there must have launched.
 The engine runs and naive scans that a window's answers are held to run
 before it opens or after it closes, so its counts are the service's own.
+Each store (the float store before its service window grows it, the
+packed store, both pair legs) also runs on the mesh backend in a launch
+window of its own (``mesh launches`` lines): its indexed queries on a mesh
+of every visible GPU and on four logical shards of ``cuda:0`` (padding and
+per-shard uploads on the card), each answer and ``ExecStats`` equal to the
+device backend's and the naive scan's, with mesh, device and host seconds
+and the bytes each query uploads; then one ``/workload`` through
+``MaskSearchService(store, backend="mesh")``; the float and packed
+stores also run one ``fused_counts`` pass on each mesh.  Every kernel the
+code routes these queries to must launch in that window, and each mesh's
+largest per-shard call of each such kernel is held against the kernel's
+plain version at tolerance 0 once the window closes (``mesh parity``
+lines).
 The script prints the build, the card, the launch floor (the device time
 of an empty kernel), per-query times and stats, a
 ``{"kernels": [...]}`` line and, last, the result line
@@ -753,7 +766,8 @@ def ingest(torch, MaskStore, cfg, dev, meta, chunks, ops, packed):
 
 def run_queries(torch, tq, ops, store, sqls, provided, prefix):
     """Each query on the device backend, then the host backend; prints the
-    wall time, ``ExecStats`` and kernel launches of each run."""
+    wall time, ``ExecStats`` and kernel launches of each run, and returns
+    (answer, stats, launches, seconds) per (query, backend)."""
     results: dict = {}
     for qname, sql in sqls:
         for be in ("device", "host"):
@@ -766,7 +780,7 @@ def run_queries(torch, tq, ops, store, sqls, provided, prefix):
             after = ops.launch_counts()
             launches = {k: after[k] - before[k] for k in after
                         if after[k] != before[k]}
-            results[(qname, be)] = (res, stats, launches)
+            results[(qname, be)] = (res, stats, launches, wall)
             n_out = len(res[0]) if isinstance(res, tuple) else len(res)
             print(f"{prefix}query {qname} backend={be}: {wall:.3f} s, "
                   f"{n_out} ids, "
@@ -796,8 +810,8 @@ def naive_scans(torch, tq, ops, store, sqls, provided):
 def check_answers(results, naive, sqls, prefix):
     """Device == host (answers and ``ExecStats`` counts) == naive scan."""
     for qname, _ in sqls:
-        rd, sd, _ = results[(qname, "device")]
-        rh, sh, _ = results[(qname, "host")]
+        rd, sd, _, _ = results[(qname, "device")]
+        rh, sh, _, _ = results[(qname, "host")]
         if not same_answer(rd, rh):
             fail(f"{prefix}{qname}: device and host answers differ")
         for f in STAT_FIELDS:
@@ -1030,6 +1044,11 @@ def kernel_entry(torch, ops, name, a, plain, launches, n_edge, bound,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def fused_positions(n):
+    """The masks of a ``fused_counts`` pass: 4,096 spread over ``n``."""
+    return np.arange(0, n, max(n // 4096, 1))[:4096]
+
+
 def fused_specs(provided):
     """The scheduler pass's 8 descriptors over masks whose ROIs are
     ``provided``: per-mask boxes, full image, the grid-misaligned ROI, word
@@ -1060,10 +1079,11 @@ def card_popcount_rate(torch) -> float:
     return rate
 
 
-def packed_phase(torch, dev, n, floor_ms):
+def packed_phase(torch, dev, n, floor_ms, smi):
     """Phases 6-7: the packed path on ``n`` binary masks; returns the four
     popcount kernels' ``kernels`` entries.  ``floor_ms`` is the launch
-    floor, printed beside the megakernel."""
+    floor, printed beside the megakernel; ``smi`` the card's name and power
+    limit."""
     from repro_torch.core import CHIConfig, MaskStore, build_chi_np
     from repro_torch.core import get_backend
     from repro_torch.core import queries as tq
@@ -1102,7 +1122,7 @@ def packed_phase(torch, dev, n, floor_ms):
           f"card")
     results = run_queries(torch, tq, ops, store, sqls, provided, "packed ")
     naive = naive_scans(torch, tq, ops, store, sqls, provided)
-    pos = np.arange(0, n, max(n // 4096, 1))[:4096]
+    pos = fused_positions(n)
     specs = fused_specs(provided[pos])
     fused = {}
     for be in ("device", "host"):
@@ -1135,12 +1155,12 @@ def packed_phase(torch, dev, n, floor_ms):
     check_answers(results, naive, sqls, "packed ")
     for qname, _ in sqls[:3]:
         for be in ("device", "host"):
-            _, stats, launches = results[(qname, be)]
+            _, stats, launches, _ = results[(qname, be)]
             if launches.get("fused_bounds_verify", 0) != stats.n_rounds:
                 fail(f"packed {qname} on {be}: fused_bounds_verify launched "
                      f"{launches.get('fused_bounds_verify', 0)} times in "
                      f"{stats.n_rounds} verification rounds")
-    res, stats, _ = results[("packed_refine", "device")]
+    res, stats, _, _ = results[("packed_refine", "device")]
     if len(res[0]) == 0 or stats.n_verified == 0:
         fail("packed_refine: empty answer or nothing verified")
     print("packed check: fused_bounds_verify launched once per verification "
@@ -1162,6 +1182,10 @@ def packed_phase(torch, dev, n, floor_ms):
     print(f"packed check: the four queries on {len(first)} masks give the "
           f"same ids and scores from a packed and a float store")
     del fl, pk
+    mesh_phase(torch, tq, ops, "packed", {"": (
+        store, results, naive,
+        workload_answers(tq, store, packed_service_sqls(), provided))},
+        provided, sqls, packed_service_sqls(), smi, fused=(pos, specs))
     service_packed_phase(tq, ops, store, provided, sqls, results, naive)
     del store, results, naive
 
@@ -1286,11 +1310,12 @@ def pair_edge_cases(torch, ops, ref, pack_masks, dev):
     return n_cases
 
 
-def pair_phase(torch, dev, n_images, floor_ms):
+def pair_phase(torch, dev, n_images, floor_ms, smi):
     """Phases 8-9: the dual-mask pair operator on ``n_images`` images of
     (saliency, attention) masks, a float and a binary leg; returns the two
     pair kernels' ``kernels`` entries.  ``floor_ms`` is the launch floor,
-    printed beside the packed pair kernel."""
+    printed beside the packed pair kernel; ``smi`` the card's name and
+    power limit."""
     from repro_torch.core import CHIConfig, MaskStore, build_chi_np
     from repro_torch.core import queries as tq
     from repro_torch.core.packing import pack_masks
@@ -1356,7 +1381,7 @@ def pair_phase(torch, dev, n_images, floor_ms):
                 fail(f"pair {leg} {qname} naive scan: {kernel} launched "
                      f"{naive[qname][3][kernel]} times, not {passes}")
             for be in ("device", "host"):
-                res, stats, launches = results[(qname, be)]
+                res, stats, launches, _ = results[(qname, be)]
                 if launches.get(kernel, 0) != stats.n_rounds:
                     fail(f"pair {leg} {qname} on {be}: {kernel} launched "
                          f"{launches.get(kernel, 0)} times in "
@@ -1389,6 +1414,11 @@ def pair_phase(torch, dev, n_images, floor_ms):
     print(f"pair check: the four queries on {len(first) // 2} images give the "
           f"same ids and scores from a packed and a float store")
     del fl, pk
+    mesh_phase(torch, tq, ops, "pair", {
+        leg: (store, results, naive,
+              [results[(qname, "device")][0] for qname, _ in sqls])
+        for leg, (store, _, _, results, naive) in legs.items()},
+        provided, sqls, [sql for _, sql in sqls], smi)
     service_pair_phase(tq, ops, legs, provided, sqls)
     del legs
 
@@ -1455,16 +1485,16 @@ def q_histogram(passes) -> str:
     return ", ".join(f"Q={q}: {n}" for q, n in sorted(counts.items()))
 
 
-def close_window(ops, label, needed, t0) -> None:
-    """Read the launch counters a service window zeroed at its start;
-    every kernel of ``needed`` must have launched in it."""
+def close_window(ops, label, needed, t0, kind="service") -> None:
+    """Read the launch counters a service or mesh window zeroed at its
+    start; every kernel of ``needed`` must have launched in it."""
     counts = ops.launch_counts()
-    print(f"service launches {label}: "
+    print(f"{kind} launches {label}: "
           + json.dumps({k: v for k, v in counts.items() if v}))
     for k in needed:
         if counts[k] <= 0:
-            fail(f"kernel {k} was not launched in the {label} service window")
-    print(f"service phase {label}: {time.perf_counter() - t0:.1f} s")
+            fail(f"kernel {k} was not launched in the {label} {kind} window")
+    print(f"{kind} phase {label}: {time.perf_counter() - t0:.1f} s")
 
 
 def workload_answers(tq, store, sqls, rois) -> list:
@@ -1760,6 +1790,123 @@ def service_pair_phase(tq, ops, legs, provided, sqls):
     close_window(ops, "pair", PAIR_KERNELS, t0)
 
 
+# -- the mesh backend on the card --------------------------------------------
+
+MESH_KERNELS = {"float": ("cp_count", "cp_count_multi", "mask_agg_counts"),
+                "packed": ("fused_bounds_verify", "cp_count_multi_packed",
+                           "mask_agg_counts_packed"),
+                "pair": PAIR_KERNELS}
+
+
+def mesh_phase(torch, tq, ops, label, stores, provided, sqls, workload,
+               smi, fused=None) -> None:
+    """Each store's indexed queries on two meshes: every visible GPU (the
+    named ``"mesh"`` backend, which the service uses) and four logical
+    shards of ``cuda:0``; answers and ``ExecStats`` must equal the device
+    backend's and ids and scores the naive scan's.  ``fused`` (positions,
+    specs) adds one ``fused_counts`` pass on each mesh, equal to the device
+    backend's.  Then one /workload per store through
+    ``MaskSearchService(store, backend="mesh")``.  One launch window: every
+    kernel the code routes these queries to must launch.  Each mesh keeps
+    its largest per-shard call of every such kernel, held after the window
+    against the kernel's plain version (tolerance 0).  ``stores`` maps a
+    leg to (store, results, naive, workload answers); the references were
+    all computed before the window opens."""
+    from repro_torch.core import MeshBackend, get_backend
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.service import MaskSearchService, ServiceClient
+    names = MESH_KERNELS[label]
+    meshes = {"every GPU": lambda store: get_backend(store, "mesh"),
+              "4 shards of cuda:0": lambda store: MeshBackend(
+                  store, make_mesh((4,), ("data",), ["cuda:0"] * 4))}
+    largest = {m: {} for m in meshes}
+    fused_want = {leg: get_backend(v[0], "device").fused_counts(
+        v[0], *fused) for leg, v in stores.items()} if fused else {}
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    for leg, (store, results, naive, wants) in stores.items():
+        prefix = f"{label} {leg}".strip() if leg else label
+        for mname, make in meshes.items():
+            mesh_be = make(store)
+            undo = record_largest(ops, names, largest[mname])
+            mesh = mesh_be.mesh
+            shards = (f"{mesh.size} shard(s) on "
+                      f"{', '.join(sorted(set(map(str, mesh.devices))))}")
+            for qname, sql in sqls:
+                placed = mesh.placed_bytes
+                t1 = time.perf_counter()
+                res, stats = tq.run(sql, store, provided_rois=provided,
+                                    backend=mesh_be)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                up = mesh.placed_bytes - placed
+                rd, sd, _, dwall = results[(qname, "device")]
+                hwall = results[(qname, "host")][3]
+                if not (same_answer(res, rd) and
+                        same_answer(res, naive[qname][0])):
+                    fail(f"{prefix} mesh {qname} ({shards}): differs from "
+                         f"the device backend's or the naive scan's answer")
+                for f in STAT_FIELDS + ("bytes_loaded", "chi_bytes"):
+                    if getattr(stats, f) != getattr(sd, f):
+                        fail(f"{prefix} mesh {qname} ({shards}): {f} "
+                             f"{getattr(stats, f)}, device "
+                             f"{getattr(sd, f)}")
+                print(f"{prefix} mesh query {qname} ({shards}): mesh "
+                      f"{wall:.3f} s, device {dwall:.3f} s, host "
+                      f"{hwall:.3f} s; uploaded {up} B; "
+                      + json.dumps({f: getattr(stats, f)
+                                    for f in STAT_FIELDS})
+                      + f" ({smi})")
+            if fused:
+                got = mesh_be.fused_counts(store, *fused)
+                if not np.array_equal(got, fused_want[leg]):
+                    fail(f"{prefix} mesh fused_counts ({shards}): differs "
+                         f"from the device backend's")
+                print(f"{prefix} mesh fused_counts ({shards}): "
+                      f"{len(fused[1])} descriptors x {len(fused[0])} "
+                      f"masks equal to the device backend's")
+            undo()
+        service = MaskSearchService(store, provided_rois=provided,
+                                    backend="mesh", trace=True)
+        served = service.stats()["backend"]
+        if served != "mesh":
+            fail(f"{prefix} mesh service: backend {served}")
+        undo = record_largest(ops, names, largest["every GPU"])
+        httpd, thread, base = serve_http(service)
+        check_workload(ServiceClient(base, timeout=600), workload, wants,
+                       f"{prefix} mesh service")
+        stop_http(httpd, thread)
+        service.close()
+        undo()
+    print(f"mesh {label}: cp_count_packed launches "
+          f"{ops.launch_counts()['cp_count_packed']}")
+    close_window(ops, label, MESH_KERNELS[label], t0, kind="mesh")
+    for mname, calls in largest.items():
+        for name in names:
+            if name not in calls:
+                fail(f"{label} mesh on {mname}: {name} was never called")
+            mesh_parity(torch, ops, name, calls[name][1],
+                        f"{label} mesh on {mname}", smi)
+
+
+def mesh_parity(torch, ops, name, a, where, smi) -> None:
+    """Hold a kernel's largest per-shard mesh call ``a`` against its plain
+    version on the same inputs (tolerance 0) and time both, on the
+    shard's device."""
+    k = getattr(ops, name)
+    with torch.cuda.device(a[0].device):
+        err = max_abs_err(torch, k(*a), k.plain(*a))
+        if err != 0:
+            fail(f"{name} differs from its plain version at the {where} "
+                 f"call {tuple(a[0].shape)} (max abs err {err})")
+        ms = time_ms(torch, lambda: k(*a), reps=5, warmup=1)
+        plain_ms = time_ms(torch, lambda: k.plain(*a), reps=3, warmup=1)
+    print(f"mesh parity {name} ({where}): largest per-shard call "
+          f"{tuple(a[0].shape)} {str(a[0].dtype).replace('torch.', '')} on "
+          f"{a[0].device} equal (max abs err 0); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms ({smi})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1889,6 +2036,13 @@ def main() -> int:
           f"identical on the card (device and host backends) and on the CPU")
     del largest, stores
 
+    # -- 5a. the mesh backend over the float store --------------------------
+    mesh_phase(torch, tq, ops, "float", {"": (
+        store, results, naive,
+        workload_answers(tq, store, float_sqls(), provided))},
+        provided, sql_set(tq), float_sqls(), smi,
+        fused=(fused_positions(n), fused_specs(provided[fused_positions(n)])))
+
     # -- 5b. the query service over the float store -------------------------
     service_float_phase(torch, tq, ops, masks_mod, store, provided, results,
                         naive, smi)
@@ -1896,11 +2050,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6-7. the packed path, then its kernels -----------------------------
-    kernels += packed_phase(torch, dev, N_PACKED, floor_ms)
+    kernels += packed_phase(torch, dev, N_PACKED, floor_ms, smi)
     torch.cuda.empty_cache()
 
     # -- 8-9. the pair operator, then its kernels ---------------------------
-    kernels += pair_phase(torch, dev, N_PAIRS, floor_ms)
+    kernels += pair_phase(torch, dev, N_PAIRS, floor_ms, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

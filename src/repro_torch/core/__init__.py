@@ -7,13 +7,15 @@ Public surface:
   * :mod:`repro_torch.core.store`   — tiered MasksDatabaseView storage.
   * :mod:`repro_torch.core.exprs`   — CP expressions with interval semantics.
   * :mod:`repro_torch.core.engine`  — filter–verification execution framework.
-  * :mod:`repro_torch.core.backend` — execution backends (host / device)
-    under one physical protocol.
+  * :mod:`repro_torch.core.backend` — execution backends (host / device /
+    mesh) under one physical protocol.
+  * :mod:`repro_torch.core.distributed` — the mesh: sharded step functions
+    and :class:`~repro_torch.core.distributed.DistributedEngine`.
   * :mod:`repro_torch.core.queries` — SQL-ish front-end (demo "Query Command").
 """
 
 from .backend import (DeviceBackend, ExecBackend, HostBackend,  # noqa: F401
-                      get_backend)
+                      MeshBackend, get_backend)
 from .chi import (CHIConfig, build_chi, build_chi_delta,  # noqa: F401
                   build_chi_np, chi_bounds)
 from .engine import (ExecStats, FilteredTopKRun, FilterRun,  # noqa: F401

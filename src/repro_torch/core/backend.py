@@ -31,7 +31,7 @@ Packed stores (DESIGN.md §12) run the same primitives on the popcount
 kernels; their words reach torch as the int32 bit view of the store's
 uint32 words (``packing.torch_bits``).
 
-Two implementations:
+Three implementations:
 
 * :class:`HostBackend`   — the NumPy/``MaskEvalContext`` paths: metered
                            ``store.load`` (partial ROI-row loads, shared-load
@@ -44,8 +44,14 @@ Two implementations:
                            the filter phase leaves the host — pair bounds
                            included (both roles' CHI rows gathered and
                            combined cell by cell on the device).
+* :class:`MeshBackend`   — every primitive is a step of
+                           :mod:`.distributed`, rows sharded over a device
+                           mesh (its shards may repeat one device); each
+                           step gathers its rows from the store's
+                           host-resident arrays and places them on the
+                           shards, where the same kernels run.
 
-Equivalence contract: both backends return identical ids/scores and
+Equivalence contract: every backend returns identical ids/scores and
 identical ``n_verified`` accounting for any plan.  Bounds interval
 arithmetic stays on the host in float64 for every backend (only the CP
 leaf differs, and it is integral), and the device top-k returns the τ *row
@@ -62,8 +68,16 @@ from ..kernels import cuda_lib
 from ..kernels import ops as kops
 from ..obs.metrics import REGISTRY as _REG
 from . import packing
-from .distributed import _bounds_from_corners, device_resolve, value_ks
-from .exprs import _threshold_ks, cell_counts_torch, pair_cell_bounds_torch
+from .distributed import (_bounds_from_corners, device_resolve,
+                          local_devices, make_chi_bounds_step,
+                          make_cp_multi_packed_step, make_cp_multi_step,
+                          make_fused_verify_step, make_mask_agg_packed_step,
+                          make_mask_agg_step, make_mesh,
+                          make_pair_cells_step, make_pair_counts_packed_step,
+                          make_pair_counts_step, make_topk_select_step,
+                          make_verify_packed_step, make_verify_step,
+                          pair_cells, value_ks)
+from .exprs import _threshold_ks
 
 F32_MAX = 3.4e38  # finite stand-in for +inf in float32 kernel compares
 
@@ -374,19 +388,6 @@ def _device_group_counts_packed(packed, flat_pos, rois, thresh, s: int):
     return kops.mask_agg_counts_packed(grp, rois, thresh)
 
 
-def _device_pair_cells(tables, pos_a, pos_b, ks, rois, rb, cb, stat):
-    """Pair-term cell combine with both role gathers, the per-cell
-    thresholded counts and the cell algebra all on the device — the pair
-    filter phase leaving the host like the CP leaf.  ``ks`` holds
-    [ka_in, ka_out, kb_in, kb_out] value-edge indices."""
-    tab_a = tables[pos_a]
-    tab_b = tables[pos_b]
-    return pair_cell_bounds_torch(
-        stat, cell_counts_torch(tab_a, ks[0]), cell_counts_torch(tab_a, ks[1]),
-        cell_counts_torch(tab_b, ks[2]), cell_counts_torch(tab_b, ks[3]),
-        rois, rb, cb)
-
-
 def _pair_passes(a, b, specs, packed: bool, pos_a=None,
                  pos_b=None) -> np.ndarray:
     """Q pair descriptors ``(rois, ta, tb)`` over the role rows ``a`` / ``b``
@@ -510,13 +511,16 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
         return _host(lb).astype(np.float64), _host(ub).astype(np.float64)
 
     def _pair_cells(self, pctx, node):
+        # both role gathers, the per-cell counts and the cell algebra on
+        # the device: the pair filter phase leaves the host like the CP leaf
         ka = _threshold_ks(self.cfg, node.ta)
         kb = _threshold_ks(self.cfg, node.tb)
-        lb, ub = _device_pair_cells(
-            self._tables, _to(pctx.pos_a, self.device),
-            _to(pctx.pos_b, self.device), (ka[0], ka[1], kb[0], kb[1]),
+        lb, ub = pair_cells(
+            node.stat, self._tables[_to(pctx.pos_a, self.device)],
+            self._tables[_to(pctx.pos_b, self.device)],
+            (ka[0], ka[1], kb[0], kb[1]),
             _to(pctx.pair_rois(node.roi).astype(np.int32), self.device),
-            self._rb, self._cb, node.stat)
+            self._rb, self._cb)
         return _host(lb), _host(ub)
 
     def verify_counts(self, ctx, batch, terms):
@@ -589,11 +593,223 @@ class DeviceBackend(_KthValueMixin, ExecBackend):
 
 
 # ---------------------------------------------------------------------------
+# Mesh — distributed.py's step functions over the shards of a device mesh
+# ---------------------------------------------------------------------------
+
+
+class MeshBackend(_KthValueMixin, ExecBackend):
+    """The query engine sharded over a device mesh: every physical
+    primitive is one of :mod:`.distributed`'s step functions, rows sharded
+    over the flattened mesh.  Candidate sets are padded to a device-count
+    multiple (padded rows carry −inf/False sentinels and are sliced off).
+    Like the JAX package's mesh, it keeps no sharded residency: each step
+    gathers its rows from the store's host-resident arrays and places them
+    on the shards."""
+
+    name = "mesh"
+
+    def __init__(self, store, mesh=None):
+        self.store = store
+        self.cfg = store.cfg
+        kind = _device_of(store).type
+        if mesh is None:
+            devices = local_devices(kind)
+            mesh = make_mesh((len(devices),), ("data",), devices)
+        if kind == "cuda" and any(d.type != "cuda" for d in mesh.devices):
+            raise ValueError(f"a store on the card runs on a mesh of CUDA "
+                             f"devices, not {mesh}")
+        self.mesh = mesh
+        self.n_dev = mesh.size
+        self._masks = store.resident_masks()
+        self._tables_np = store.chi_host()
+        self._epoch = getattr(store, "epoch", 0)
+        self._rb = np.asarray(self.cfg.row_bounds, np.int32)
+        self._cb = np.asarray(self.cfg.col_bounds, np.int32)
+        self._bounds_step = make_chi_bounds_step(mesh)
+        self._packed = is_packed(store)
+        # Packed steps share the float steps' call signatures and shardings
+        # (words axis for pixel-column axis), so every call site below is
+        # representation-agnostic once the right step is pinned here.
+        if self._packed:
+            self._verify_step = make_verify_packed_step(mesh)
+            self._agg_step = make_mask_agg_packed_step(mesh)
+            self._multi_step = make_cp_multi_packed_step(mesh)
+            self._pair_step = make_pair_counts_packed_step(mesh)
+            self._fused_verify_step = make_fused_verify_step(mesh)
+        else:
+            self._verify_step = make_verify_step(mesh)
+            self._agg_step = make_mask_agg_step(mesh)
+            self._multi_step = make_cp_multi_step(mesh)
+            self._pair_step = make_pair_counts_step(mesh)
+            self._fused_verify_step = None
+        self._select_steps: dict = {}
+        self._pair_cells_steps: dict = {}   # pair stat → sharded cells step
+        self._tier_bnds: dict = {}          # tier grid → (row_b, col_b)
+
+    def sync(self):
+        """Re-pin the host-resident mask/CHI arrays after a store mutation.
+        The store maintains ``resident_masks`` incrementally, so memory-tier
+        refreshes are a view swap; shards are re-padded lazily per step
+        (the mesh has no persistent sharded residency to patch)."""
+        if self._epoch == getattr(self.store, "epoch", 0):
+            return
+        self._masks = self.store.resident_masks()
+        self._tables_np = self.store.chi_host()
+        self._epoch = self.store.epoch
+        _BACKEND_SYNCS.labels(backend=self.name).inc()
+
+    def _pad(self, arr, fill=0):
+        """Pad the leading dim to a positive device-count multiple."""
+        n = len(arr)
+        r = (-n) % self.n_dev if n else self.n_dev
+        if r == 0:
+            return arr, n
+        pad = np.full((r,) + arr.shape[1:], fill, arr.dtype)
+        return np.concatenate([arr, pad]), n
+
+    def bounds(self, ctx, expr):
+        if hasattr(ctx, "pair_rois"):
+            return ctx.bounds(expr, pair_leaf=self._pair_cells)
+        return ctx.bounds(expr, cp_leaf=self._cp_bounds)
+
+    def _tier_bounds(self, g: int):
+        pair = self._tier_bnds.get(g)
+        if pair is None:
+            tcfg = self.cfg.for_grid(g)
+            pair = (np.asarray(tcfg.row_bounds, np.int32),
+                    np.asarray(tcfg.col_bounds, np.int32))
+            self._tier_bnds[g] = pair
+        return pair
+
+    def _cp_bounds(self, mctx, node):
+        pos = np.asarray(mctx.positions)
+        rois = mctx.resolve_rois(node.roi, pos).astype(np.int32)
+        g = getattr(mctx, "tier", None)
+        if g is None or g == self.cfg.grid:
+            cfg, tables, rb, cb = self.cfg, self._tables_np, self._rb, self._cb
+        else:
+            # coarse ladder rung: the store's host tier cache (maintained
+            # incrementally across mutations) + the tier's grid boundaries
+            cfg = self.cfg.for_grid(g)
+            tables = self.store.chi_tier_host(g)
+            rb, cb = self._tier_bounds(g)
+        tab_p, n = self._pad(tables[pos])
+        rois_p, _ = self._pad(rois)
+        lb, ub = self._bounds_step(tab_p, rois_p, rb, cb,
+                                   value_ks(cfg, node.lv, node.uv))
+        return (_host(lb)[:n].astype(np.float64),
+                _host(ub)[:n].astype(np.float64))
+
+    def _pair_cells(self, pctx, node):
+        step = self._pair_cells_steps.get(node.stat)
+        if step is None:
+            step = make_pair_cells_step(self.mesh, node.stat)
+            self._pair_cells_steps[node.stat] = step
+        pos_a = np.asarray(pctx.pos_a)
+        pos_b = np.asarray(pctx.pos_b)
+        rois = np.asarray(pctx.pair_rois(node.roi), np.int32)
+        tab_a_p, n = self._pad(self._tables_np[pos_a])
+        tab_b_p, _ = self._pad(self._tables_np[pos_b])
+        rois_p, _ = self._pad(rois)
+        ka = _threshold_ks(self.cfg, node.ta)
+        kb = _threshold_ks(self.cfg, node.tb)
+        ks = np.array([ka[0], ka[1], kb[0], kb[1]], np.int32)
+        lb, ub = step(tab_a_p, tab_b_p, rois_p, ks, self._rb, self._cb)
+        return (_host(lb)[:n].astype(np.float64),
+                _host(ub)[:n].astype(np.float64))
+
+    def verify_counts(self, ctx, batch, terms):
+        terms = list(terms)
+        pos = ctx.positions[batch]
+        masks_p, n = self._pad(self._masks[pos])
+        if len(terms) == 1:
+            # single descriptor → the plain sharded verify step
+            t = terms[0]
+            rois_p, _ = self._pad(
+                ctx.resolve_rois(t.roi, pos).astype(np.int32))
+            counts = self._verify_step(masks_p, rois_p, np.float32(t.lv),
+                                       np.float32(min(t.uv, F32_MAX)))
+            return {t: _host(counts)[:n].astype(np.float64)}
+        # several distinct terms (predicate + ranking) → one fused pass
+        # over the sharded batch, exactly like the scheduler's route
+        rois_q, lvs, uvs = spec_arrays(
+            [(self._pad(ctx.resolve_rois(t.roi, pos).astype(np.int32))[0],
+              t.lv, t.uv) for t in terms])
+        counts = _host(self._multi_step(masks_p, rois_q, lvs, uvs))
+        return {t: counts[i, :n].astype(np.float64)
+                for i, t in enumerate(terms)}
+
+    def _fused_verify_batch(self, ctx, batch, pos, rois_q, lvs, uvs,
+                            decided, lb):
+        masks_p, n = self._pad(self._masks[pos])
+        pad = len(masks_p) - n
+        if pad:
+            # padded rows: empty ROI (zero area) + undecided → count 0
+            rois_q = np.pad(rois_q, ((0, 0), (0, pad), (0, 0)))
+            decided = np.pad(decided, ((0, 0), (0, pad)))
+            lb = np.pad(lb, ((0, 0), (0, pad)))
+        counts = self._fused_verify_step(masks_p, rois_q, lvs, uvs,
+                                         decided, lb)
+        return _host(counts)[:, :n]
+
+    def topk_candidates(self, lb, ub, k, desc, definite, possible):
+        if k <= 0 or int(np.count_nonzero(definite)) < k:
+            return possible.copy()
+        pes32 = (lb if desc else -ub).astype(np.float32)
+        pes_p, n = self._pad(pes32, fill=np.float32(-np.inf))
+        def_p, _ = self._pad(np.asarray(definite, bool), fill=False)
+        step = self._select_steps.get(k)
+        if step is None:
+            step = self._select_steps[k] = make_topk_select_step(self.mesh, k)
+        ids = np.arange(len(pes_p), dtype=np.int32)
+        tau_idx = int(step(pes_p, def_p, ids))
+        return self._alive_from_index(lb, ub, k, desc, definite, possible,
+                                      pes32, tau_idx)
+
+    def mask_agg_counts(self, gctx, node, gidx):
+        gidx = np.asarray(gidx)
+        s = gctx.groups.shape[1]
+        grp = self._masks[gctx.groups[gidx].reshape(-1)]
+        # row shape is (H, W) float or (H, words) packed
+        grp = grp.reshape((len(gidx), s) + self._masks.shape[1:])
+        rois = gctx.resolve_group_rois(node.roi, gidx).astype(np.int32)
+        grp_p, n = self._pad(grp)
+        rois_p, _ = self._pad(rois)
+        tdt = np.float32 if self._packed else grp.dtype
+        inter, union = self._agg_step(grp_p, rois_p,
+                                      np.asarray(node.thresh, tdt))
+        counts = inter if node.agg == "intersect" else union
+        return _host(counts)[:n].astype(np.float64)
+
+    def fused_counts(self, store, positions, specs):
+        masks_p, n = self._pad(self._masks[np.asarray(positions)])
+        rois_q, lvs, uvs = spec_arrays(
+            [(self._pad(np.asarray(sp[0], np.int32))[0], sp[1], sp[2])
+             for sp in specs])
+        counts = self._multi_step(masks_p, rois_q, lvs, uvs)
+        return _host(counts)[:, :n]
+
+    def fused_pair_counts(self, store, pos_a, pos_b, specs):
+        # Pair rows shard together: the i-th pair's A and B tiles land on
+        # the same device, so the fused kernel needs no collective.
+        a_p, n = self._pad(self._masks[np.asarray(pos_a)])
+        b_p, _ = self._pad(self._masks[np.asarray(pos_b)])
+        out = np.empty((len(specs), 3, n), np.int64)
+        for qi, (rois, ta, tb) in enumerate(specs):
+            rois_p, _ = self._pad(np.asarray(rois, np.int32))
+            trio = self._pair_step(a_p, b_p, rois_p, np.float32(ta),
+                                   np.float32(tb))
+            for row, counts in enumerate(trio):
+                out[qi, row] = _host(counts)[:n]
+        return out
+
+
+# ---------------------------------------------------------------------------
 # Resolution
 # ---------------------------------------------------------------------------
 
 _HOST = HostBackend()
-_NAMED = {"device": DeviceBackend}
+_NAMED = {"device": DeviceBackend, "mesh": MeshBackend}
 
 
 def host_backend() -> HostBackend:
@@ -605,10 +821,11 @@ def get_backend(store, backend=None) -> ExecBackend:
     """Resolve a backend spec against a store.
 
     ``backend`` is ``None`` (the store's own device decides: the device
-    backend on a CUDA store, the host backend otherwise), ``"host"``, a
-    backend *name* (``"device"`` — instances are cached per store, so the
-    resident mask/CHI upload happens once), or an :class:`ExecBackend`
-    instance.  The mesh backend comes with the mesh slice.
+    backend on a CUDA store, the host backend otherwise; the mesh is only
+    ever named), ``"host"``, a backend *name* (``"device"``/``"mesh"`` —
+    instances are cached per store, so the resident mask/CHI upload happens
+    once), or an :class:`ExecBackend` instance (e.g. a :class:`MeshBackend`
+    built over an explicit mesh).
     """
     if backend is None:
         backend = "device" if _device_of(store).type == "cuda" else "host"
@@ -633,6 +850,6 @@ def get_backend(store, backend=None) -> ExecBackend:
     return cache[backend]
 
 
-__all__ = ["ExecBackend", "HostBackend", "DeviceBackend", "F32_MAX",
-           "chi_verdicts", "get_backend", "host_backend", "is_packed",
-           "spec_arrays"]
+__all__ = ["ExecBackend", "HostBackend", "DeviceBackend", "MeshBackend",
+           "F32_MAX", "chi_verdicts", "get_backend", "host_backend",
+           "is_packed", "spec_arrays"]

@@ -590,7 +590,7 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8766)
     ap.add_argument("--verify-batch", type=int, default=256)
     ap.add_argument("--backend", default=None,
-                    choices=("host", "device"),
+                    choices=("host", "device", "mesh"),
                     help="default: device on a cuda store, host on a cpu one")
     ap.add_argument("--device", default="cuda",
                     help="torch device the store lives on (cuda, or cpu)")

@@ -302,11 +302,13 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8765)
     ap.add_argument("--verify-batch", type=int, default=256)
     ap.add_argument("--backend", default=None,
-                    choices=("host", "device"),
+                    choices=("host", "device", "mesh"),
                     help="physical execution layer (core/backend.py): host "
-                         "NumPy loads, or masks and CHI resident on the "
-                         "store's device; by default the device backend on "
-                         "a cuda store and the host backend on a cpu one")
+                         "NumPy loads, masks and CHI resident on the "
+                         "store's device, or the mesh over every local "
+                         "device of the store's type; by default the device "
+                         "backend on a cuda store and the host backend on a "
+                         "cpu one")
     ap.add_argument("--device", default="cuda",
                     help="torch device the store lives on (cuda, or cpu)")
     ap.add_argument("--trace", action="store_true",

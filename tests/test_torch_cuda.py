@@ -10,6 +10,7 @@ Inputs come from fixed numpy seeds; every output is an int32 count, so
 kernel and plain version must agree exactly.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -709,3 +710,109 @@ def test_service_on_the_card_matches_cpu(cuda):
         assert answers["cuda"][i] == answers["cpu"][i]
         assert answers["cuda"][i] == answers["cuda"][0]
     assert fronts["cuda"][0].scheduler.stats.fused_passes > 0
+
+
+# -- the mesh on the card ------------------------------------------------------
+
+def _twin_stores(packed, cuda):
+    """A 64-mask store on the card and its CPU twin (32 saliency/attention
+    pairs: types 1 and 2 alternate per image)."""
+    n, h, w = 64, 64, 64
+    rois = object_boxes(n, h, w, seed=1)
+    masks, _ = saliency_masks(n, h, w, seed=0, attacked_fraction=0.15,
+                              boxes=rois)
+    if packed:
+        masks = (masks > 0.5).astype(np.float32)
+    meta = np.zeros(n, MASK_META_DTYPE)
+    meta["mask_id"] = np.arange(n)
+    meta["image_id"] = np.arange(n) // 2
+    meta["mask_type"] = np.arange(n) % 2 + 1
+    cfg = CHIConfig(grid=16, num_bins=16, height=h, width=w)
+    return {str(d): MaskStore.create_memory(masks, meta, cfg, packed=packed,
+                                            device=d)
+            for d in ("cpu", cuda)}, rois
+
+
+MESH_SQL = {
+    False: ["SELECT mask_id FROM MasksDatabaseView WHERE "
+            "CP(mask, roi, (0.8, 1.0)) / AREA(roi) < 0.02;",
+            queries.SCENARIO1_TOPK, queries.SCENARIO3_IOU,
+            "SELECT mask_id FROM MasksDatabaseView WHERE CP(mask, roi, "
+            "(0.8, 1.0)) > 50 AND NOT CP(mask, full_img, (0.2, 0.6)) < 100 "
+            "ORDER BY CP(mask, full_img, (0.2, 0.6)) DESC LIMIT 10;"],
+    True: ["SELECT mask_id FROM MasksDatabaseView WHERE CP(mask, roi, "
+           "(0.5, 1.5)) / AREA(roi) < 0.2;",
+           "SELECT mask_id FROM MasksDatabaseView ORDER BY CP(mask, "
+           "(3, 5, 61, 59), (0.5, 1.5)) DESC LIMIT 9;",
+           queries.SCENARIO3_IOU],
+}
+MESH_PAIR_SQL = [
+    queries.SCENARIO6_DISCREPANCY,
+    "SELECT image_id FROM MasksDatabaseView WHERE "
+    "PAIR_DIFF(saliency, attention, 0.6, 0.6, roi) > 20;"]
+MESH_KERNELS = {
+    False: ("cp_count", "cp_count_multi", "mask_agg_counts", "pair_counts"),
+    True: ("fused_bounds_verify", "cp_count_multi_packed",
+           "mask_agg_counts_packed", "pair_counts_packed"),
+}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("shards", [1, 4, "cards"])
+def test_mesh_on_the_card_matches_cpu(cuda, shards, packed):
+    """A card store on a mesh of ``cuda:0`` (one shard, or four logical
+    shards) or of every visible card (``"cards"``: the default mesh, one
+    shard a card, results gathered on ``cuda:0``) answers as its CPU twin's
+    host and mesh backends, with equal ``ExecStats``, and launches the CUDA
+    kernels (once per shard)."""
+    from repro_torch.core import MeshBackend, get_backend
+    from repro_torch.core.distributed import make_mesh
+
+    stores, rois = _twin_stores(packed, cuda)
+    if shards == "cards":
+        mesh = make_mesh((torch.cuda.device_count(),), ("data",))
+        shards = mesh.size
+    else:
+        mesh = make_mesh((shards,), ("data",), ["cuda:0"] * shards)
+    be = MeshBackend(stores["cuda"], mesh)
+    twin = MeshBackend(stores["cpu"],
+                       make_mesh((shards,), ("data",), ["cpu"] * shards))
+    ops.reset_launches()
+    for sql in MESH_SQL[packed] + MESH_PAIR_SQL:
+        want, wst = queries.run(sql, stores["cpu"], provided_rois=rois,
+                                backend="host")
+        twin_ans, tst = queries.run(sql, stores["cpu"], provided_rois=rois,
+                                    backend=twin)
+        got, gst = queries.run(sql, stores["cuda"], provided_rois=rois,
+                               backend=be)
+        for a in (want, twin_ans):
+            if isinstance(a, tuple):
+                np.testing.assert_array_equal(got[0], a[0])
+                np.testing.assert_array_equal(got[1], a[1])
+            else:
+                np.testing.assert_array_equal(got, a)
+        assert gst.n_verified == wst.n_verified > 0
+        assert gst == dataclasses.replace(
+            tst, bound_time_s=gst.bound_time_s,
+            verify_time_s=gst.verify_time_s)
+    pos = np.arange(0, 64, 3)
+    specs = [(rois[pos], 0.5, 1.5), (np.tile([0, 0, 64, 64], (len(pos), 1)),
+                                     0.2, 0.6)]
+    np.testing.assert_array_equal(be.fused_counts(stores["cuda"], pos, specs),
+                                  get_backend(stores["cpu"], "host")
+                                  .fused_counts(stores["cpu"], pos, specs))
+    counts = ops.launch_counts()
+    for k in MESH_KERNELS[packed]:
+        assert counts[k] > 0 and counts[k] % shards == 0, (k, counts)
+    assert mesh.placed_bytes > 0
+
+
+def test_mesh_refuses_cpu_shards_for_a_card_store(cuda):
+    from repro_torch.core import MeshBackend, get_backend
+    from repro_torch.core.distributed import make_mesh
+    stores, _ = _twin_stores(False, cuda)
+    with pytest.raises(ValueError):
+        MeshBackend(stores["cuda"], make_mesh((2,), ("data",), ["cpu"] * 2))
+    be = get_backend(stores["cuda"], "mesh")
+    assert be.mesh.devices == tuple(
+        torch.device("cuda", i) for i in range(torch.cuda.device_count()))

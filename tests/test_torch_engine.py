@@ -96,7 +96,7 @@ def _assert_same(got, want, label):
         assert getattr(tst, f) == getattr(jst, f), (label, f)
 
 
-@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("backend", ["host", "device", "mesh"])
 @pytest.mark.parametrize("name", list(SLICE))
 def test_slice_queries_match_jax(db, name, backend):
     j, t, rois = db
@@ -122,7 +122,7 @@ def test_naive_scan_matches_indexed_and_jax(db, name):
         np.testing.assert_array_equal(indexed, res)
 
 
-@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("backend", ["host", "device", "mesh"])
 @pytest.mark.parametrize("i", range(len(MORE)))
 def test_plan_kinds_match_jax(db, i, backend):
     """Filtered top-k, boolean predicates, constant ROIs, scalar
@@ -233,7 +233,7 @@ def test_fused_counts_identical_across_backends_and_jax(db):
              (np.tile([0, 0, H, W], (len(pos), 1)), 0.2, 0.6),
              (np.tile([3, 9, 50, 30], (len(pos), 1)), 0.5, float("inf"))]
     want = jget_backend(j, "host").fused_counts(j, pos, specs)
-    for name in ("host", "device"):
+    for name in ("host", "device", "mesh"):
         got = get_backend(t, name).fused_counts(t, pos, specs)
         np.testing.assert_array_equal(got, want, err_msg=name)
 
@@ -293,7 +293,7 @@ def test_host_pair_bounds_match_jax(db, stat):
             np.testing.assert_array_equal(tb_[1], jb[1])
 
 
-@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("backend", ["host", "device", "mesh"])
 def test_scenario6_pair_query_matches_jax(db, backend):
     """The saliency-vs-attention discrepancy ranking runs end to end (the
     store's masks alternate type 1 and 2 per image)."""
@@ -323,7 +323,7 @@ def _untimed(x):
     return x
 
 
-@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("backend", ["host", "device", "mesh"])
 def test_explain_matches_jax(db, backend):
     """``EXPLAIN`` (the plan tree, not executed) and ``EXPLAIN ANALYZE``
     (the annotated tree, its stats, text and trace) of the same SQL give

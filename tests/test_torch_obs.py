@@ -5,8 +5,7 @@ Mirrors ``tests/test_obs.py`` case by case over the same 24-mask store
 (the port's on the CPU): span-tree structures, EXPLAIN and EXPLAIN ANALYZE
 reports (trees, text, stats, traces) and the Prometheus exposition must be
 equal to the JAX package's with timing fields removed
-(``test_torch_service.plain``).  The backends are host and device; the
-mesh backend comes with the port's mesh slice.
+(``test_torch_service.plain``), on the host, device and mesh backends.
 """
 
 import json
@@ -20,7 +19,7 @@ from test_torch_service import JAX, TORCH, both, create_memory, \
     metric_names
 
 B, H, W = 24, 32, 32
-BACKENDS = ("host", "device")
+BACKENDS = ("host", "device", "mesh")
 
 CP_SQL = ("SELECT mask_id FROM V "
           "ORDER BY CP(mask, roi, (0.8, 1.0)) / AREA(roi) ASC LIMIT 10;")

@@ -454,7 +454,7 @@ def _same(got, want, label, stats=True):
             assert getattr(gst, f) == getattr(wst, f), (label, f)
 
 
-@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("backend", ["host", "device", "mesh"])
 @pytest.mark.parametrize("name", list(SMOKE_SQL))
 def test_packed_queries_match_jax_and_float(packed_db, name, backend):
     j, t, f, rois = packed_db
@@ -485,7 +485,7 @@ def test_packed_plans_equivalent_across_backends_and_to_float(packed_db, i):
     plan = PLANS[i]
     jplan_obj = _to_jax_plan(plan, jplan)
     want = jplan.run_plan(j, jplan_obj, provided_rois=rois, verify_batch=5)
-    for be in ("host", "device"):
+    for be in ("host", "device", "mesh"):
         got = run_plan(t, plan, provided_rois=rois, verify_batch=5,
                        backend=be)
         _same(got, jplan.run_plan(j, jplan_obj, provided_rois=rois,
@@ -526,7 +526,7 @@ def test_fused_counts_identical_across_backends_and_jax(packed_db):
              (np.tile([3, 5, 29, 31], (7, 1)), -0.5, 0.5),
              (np.tile([0, 30, H, 64], (7, 1)), 0.5, float("inf"))]
     want = jget_backend(j, "host").fused_counts(j, pos, specs)
-    for name in ("host", "device"):
+    for name in ("host", "device", "mesh"):
         _eq(get_backend(t, name).fused_counts(t, pos, specs), want)
 
 
@@ -677,7 +677,7 @@ def _dispatches(kernel):
     return snap.get(f"kernel={kernel}", 0.0)
 
 
-@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("backend", ["host", "device", "mesh"])
 def test_megakernel_one_dispatch_per_verify_batch(packed_db, backend):
     _, t, _, _ = packed_db
     run = TopKRun(t, CP((3, 5, 29, 31), 0.5, 1.5), verify_batch=4,

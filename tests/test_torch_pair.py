@@ -388,7 +388,7 @@ def _same(got, want, label, stats=True):
 def test_pair_plans_match_jax_on_every_path(db, i):
     j, t, rois = db
     plan, jp = PLANS[i], _to_jax_plan(PLANS[i])
-    for be in ("host", "device"):
+    for be in ("host", "device", "mesh"):
         got = run_plan(t, plan, provided_rois=rois, verify_batch=4,
                        backend=be)
         _same(got, jplan.run_plan(j, jp, provided_rois=rois, verify_batch=4,
@@ -400,7 +400,7 @@ def test_pair_plans_match_jax_on_every_path(db, i):
     _same(got, naive, f"{i}/device vs naive", stats=False)
 
 
-@pytest.mark.parametrize("backend", ["host", "device", "naive"])
+@pytest.mark.parametrize("backend", ["host", "device", "mesh", "naive"])
 @pytest.mark.parametrize("name", list(SQL))
 def test_pair_sql_matches_jax(db, name, backend):
     j, t, rois = db
@@ -464,7 +464,7 @@ def _dispatches(kernel):
     return snap.get(f"kernel={kernel}", 0.0)
 
 
-@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("backend", ["host", "device", "mesh"])
 def test_pair_kernel_one_dispatch_per_spec_per_batch(db, backend):
     """IoU's inter and union share one (ta, tb, roi) spec, so a ranking by
     IoU dispatches the pair kernel once per verification batch; a second

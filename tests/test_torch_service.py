@@ -434,10 +434,11 @@ def test_group_query_through_batch_fallback(db):
     assert stats.fallback_batches > 0                # MASK_AGG can't fuse
 
 
-@pytest.mark.parametrize("backend", ["device"])
+@pytest.mark.parametrize("backend", ["device", "mesh"])
 def test_service_on_alternate_backends(db, backend):
-    """The device-backend service answers as the host service and loads no
-    metered bytes; on the JAX side the same pair of services runs."""
+    """The device- and mesh-backend services answer as the host service
+    and load no metered bytes (both read the store's resident rows); on the
+    JAX side the same pair of services runs."""
     rois = db[1]
 
     def scenario(P):
@@ -548,14 +549,19 @@ def test_default_backend_follows_the_store_device():
     svc = TORCH.service.MaskSearchService(store, provided_rois=rois)
     assert svc.stats()["backend"] == "host"
     assert TORCH.core.get_backend(store, "device").name == "device"
+    # the mesh is named, never the default: it resolves, is cached per
+    # store, and an instance passes through
+    mesh = TORCH.core.get_backend(store, "mesh")
+    assert isinstance(mesh, TORCH.core.MeshBackend)
+    assert TORCH.core.get_backend(store, "mesh") is mesh
+    assert TORCH.core.get_backend(store, mesh) is mesh
+    assert TORCH.core.get_backend(store, None) is be
     with pytest.raises(ValueError):
-        TORCH.core.get_backend(store, "mesh")      # the mesh slice's
+        TORCH.core.get_backend(store, "gpu-cluster")
 
 
-@pytest.mark.parametrize("module", ("server", "asyncserver"))
-def test_cli_backend_follows_the_store_device(module):
-    """With no ``--backend``, the CLIs leave the choice to ``get_backend``:
-    on a CPU store (``--device cpu``) they serve the host backend."""
+def _cli_stats(module, *flags) -> dict:
+    """Start a CLI on a 16-mask CPU store and return its ``/stats``."""
     import os
     import subprocess
     import sys
@@ -565,14 +571,26 @@ def test_cli_backend_follows_the_store_device(module):
     proc = subprocess.Popen(
         [sys.executable, "-m", f"repro_torch.service.{module}",
          "--synthetic", "16", "--size", "16", "--device", "cpu",
-         "--port", "0"], env=env, stdout=subprocess.PIPE, text=True)
+         "--port", "0", *flags], env=env, stdout=subprocess.PIPE, text=True)
     try:
         line = proc.stdout.readline()
         assert line.startswith("masksearch"), line
         url = line.split(" on ")[-1].strip()
         with urllib.request.urlopen(url + "/stats", timeout=60) as resp:
-            stats = json.loads(resp.read())
-        assert stats["backend"] == "host"
+            return json.loads(resp.read())
     finally:
         proc.kill()
         proc.wait(timeout=60)
+
+
+@pytest.mark.parametrize("module", ("server", "asyncserver"))
+def test_cli_backend_follows_the_store_device(module):
+    """With no ``--backend``, the CLIs leave the choice to ``get_backend``:
+    on a CPU store (``--device cpu``) they serve the host backend."""
+    assert _cli_stats(module)["backend"] == "host"
+
+
+@pytest.mark.parametrize("module", ("server", "asyncserver"))
+def test_cli_serves_the_mesh_backend(module):
+    """``--backend mesh`` serves from the mesh over the store's devices."""
+    assert _cli_stats(module, "--backend", "mesh")["backend"] == "mesh"
