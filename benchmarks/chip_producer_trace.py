@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Where the mask producer's time goes on one GPU: a profiler trace.
+
+    python3 benchmarks/chip_producer_trace.py
+
+Builds granite-3.0-2B at full width (random weights, ``torch.Generator``
+seed 0, bf16) as ``chip_smoke.py``'s producer phase does, warms up, then
+traces with ``torch.profiler`` (CPU and CUDA activities): the 8 x 128
+prefill and 8 greedy decode steps of ``launch/serve.py``'s path, and one
+64-row batch of the harvest (``attention_maps`` then
+``last_layer_attention`` at 224 tokens).  For each window it prints the
+host wall time, the device's busy time (the union of the kernels'
+intervals on the timeline) and so its idle share, the kernel count, and
+the kernels that take the most device time; and the card's name and
+power limit.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+
+def busy_ms(events) -> float:
+    """Union of the device kernels' [start, end) intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3                      # µs → ms
+
+
+def trace(torch, label, fn, smi) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    if not kernels:
+        print(f"trace {label}: host wall {wall:.3f} ms; the trace holds no "
+              f"device events, so device busy time is not measured ({smi})")
+        return
+    busy = busy_ms(kernels)
+    print(f"trace {label}: host wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{len(kernels)} device ops ({smi})")
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=8)
+    print(table)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_producer_trace: needs a CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.configs import load_arch
+    from repro_torch.core import saliency
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    dev = torch.device("cuda")
+    cfg = load_arch("granite_3_2b")
+    model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
+    prompt = serve.prompt_batch(cfg, 8, 128)
+    tokens = SyntheticLMData(cfg, 224, 64, seed=0).batch_at(0)
+    serve.greedy_generate(model, prompt, 3)                  # warm-up
+    saliency.last_layer_attention(model.attention_maps(tokens))
+    trace(torch, "serve (prefill 8x128 + 8 decode steps)",
+          lambda: serve.greedy_generate(model, prompt, 9), smi)
+    cache = model.init_cache(8, 160)
+    logits, cache = model.prefill(prompt, cache)
+    token = logits[:, -1:].argmax(-1)
+
+    def decode():
+        nonlocal cache, token
+        for i in range(8):
+            logits, cache = model.decode_step(cache, token, 128 + i)
+            token = logits[:, -1:].argmax(-1)
+    trace(torch, "decode (8 steps x8)", decode, smi)
+    trace(torch, "harvest batch (64 x 224 tokens)",
+          lambda: saliency.last_layer_attention(
+              model.attention_maps(tokens)), smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

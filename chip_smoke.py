@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py      # 16,384 float32 + 65,536 binary masks and
-                               # 8,192 (saliency, attention) pairs, 224x224
+    python3 chip_smoke.py      # 16,384 float32 + 65,536 binary masks,
+                               # 8,192 (saliency, attention) pairs and
+                               # 4,096 masks from granite-3.0-2B, 224x224
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -69,7 +70,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 9. the two pair kernels against their plain versions (main-path inputs and
    edge cases, tolerance 0) and timed beside their bounds and sector
    floors; ``pair_counts_packed`` also as a device round runs it (both
-   roles read in place) against the two gathers it replaced.
+   roles read in place) against the two gathers it replaced;
+10. the mask producers: granite-3.0-2B at full width (40 layers, d_model
+   2048, bf16, random weights from ``torch.Generator`` seed 0) built with
+   ``build_model``; ``launch/serve.py``'s prefill of 8 x 128 tokens and 32
+   greedy decode steps; a two-layer float32 cut at full width held to
+   teacher forcing and, with the same weights, to the port's CPU path;
+   4,096 224x224 last-layer attention masks harvested from
+   ``SyntheticLMData`` through ``PrefetchIterator`` and one batch of
+   input saliency through the whole stack; the masks ingested on the
+   card (``create_memory`` of 2,048, ``append`` of the rest) and queried
+   with Scenario 1's ranking and a CP filter over the span's key columns
+   on the device and host backends and as naive scans (device == host ==
+   naive scan, equal ``ExecStats``) in a launch window of their own
+   (``producer launches``), whose largest ``chi_cell_hist``,
+   ``cp_count_multi`` and ``cp_count`` calls are then held against their
+   plain versions (``producer parity``); then the top-k's masks are
+   augmented outside their ROI and their token rows redrawn and mixed
+   into a batch (``producer …`` lines).
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
@@ -139,6 +157,16 @@ FLOAT_KERNELS = ("cp_count", "cp_count_multi", "chi_cell_hist",
 PACKED_KERNELS = ("cp_count_packed", "cp_count_multi_packed",
                   "mask_agg_counts_packed", "fused_bounds_verify")
 PAIR_KERNELS = ("pair_counts", "pair_counts_packed")
+
+# the producer phase: granite-3.0-2B at full width (random weights)
+PRODUCER_ARCH = "granite_3_2b"
+N_PRODUCED = 4096           # 224-token sequences → 224x224 attention masks
+PRODUCER_BATCH = 64
+N_PRODUCED_FIRST = 2048     # create_memory on these, append the rest
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 128, 32
+PRODUCER_ROI = (0, 56, 224, 168)    # the key columns of the object span
+PRODUCER_KERNELS = ("chi_cell_hist", "cp_count_multi", "cp_count")
+PEAK_BF16_OPS_S = 989e12    # H100 SXM dense bf16 tensor cores
 
 FILTER_SQL = ("SELECT mask_id FROM MasksDatabaseView "
               "WHERE CP(mask, roi, (0.8, 1.0)) / AREA(roi) < 0.02;")
@@ -736,11 +764,12 @@ def pair_data(n_images):
     return boxes, misaligned, jobs
 
 
-def ingest(torch, MaskStore, cfg, dev, meta, chunks, ops, packed):
+def ingest(torch, MaskStore, cfg, dev, meta, chunks, ops, packed,
+           label=None):
     """``create_memory`` on the first chunk, then ``append`` of the rest,
     each call timed to its end on the card.  Returns the store, the first
     chunk and the last."""
-    label = "packed ingest" if packed else "ingest"
+    label = label or ("packed ingest" if packed else "ingest")
     chunks = iter(chunks)
     first = next(chunks)
     t1 = time.perf_counter()
@@ -1889,10 +1918,10 @@ def mesh_phase(torch, tq, ops, label, stores, provided, sqls, workload,
                         f"{label} mesh on {mname}", smi)
 
 
-def mesh_parity(torch, ops, name, a, where, smi) -> None:
-    """Hold a kernel's largest per-shard mesh call ``a`` against its plain
-    version on the same inputs (tolerance 0) and time both, on the
-    shard's device."""
+def mesh_parity(torch, ops, name, a, where, smi, kind="mesh") -> None:
+    """Hold a kernel's largest per-shard mesh call (or, with ``kind``, a
+    window's largest call) ``a`` against its plain version on the same
+    inputs (tolerance 0) and time both, on the shard's device."""
     k = getattr(ops, name)
     with torch.cuda.device(a[0].device):
         err = max_abs_err(torch, k(*a), k.plain(*a))
@@ -1901,10 +1930,298 @@ def mesh_parity(torch, ops, name, a, where, smi) -> None:
                  f"call {tuple(a[0].shape)} (max abs err {err})")
         ms = time_ms(torch, lambda: k(*a), reps=5, warmup=1)
         plain_ms = time_ms(torch, lambda: k.plain(*a), reps=3, warmup=1)
-    print(f"mesh parity {name} ({where}): largest per-shard call "
+    print(f"{kind} parity {name} ({where}): largest "
+          f"{'per-shard ' if kind == 'mesh' else ''}call "
           f"{tuple(a[0].shape)} {str(a[0].dtype).replace('torch.', '')} on "
           f"{a[0].device} equal (max abs err 0); kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms ({smi})")
+
+
+def config_params(cfg) -> int:
+    """A dense GQA decoder's parameter count from its config alone (tied
+    embedding over the padded vocab; 2,533,787,648 for granite-3.0-2B)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (2 * d + 2 * d * cfg.num_heads * hd +
+                 2 * d * cfg.num_kv_heads * hd + 3 * d * cfg.d_ff)
+    return cfg.padded_vocab * d + d + cfg.num_layers * per_layer
+
+
+def producer_sql(cut: float) -> list:
+    """Scenario 1's ranking over the span's key columns (LIMIT 256) and a
+    CP filter over the same ROI whose cut is the masks' median attended
+    share, so that it splits them."""
+    return [("scenario1_topk",
+             "SELECT mask_id FROM MasksDatabaseView ORDER BY "
+             "CP(mask, roi, (0.5, 1.0)) / AREA(roi) ASC LIMIT 256;"),
+            ("attended_filter",
+             "SELECT mask_id FROM MasksDatabaseView WHERE "
+             f"CP(mask, roi, (0.01, 1.0)) / AREA(roi) > {cut!r};")]
+
+
+def producer_cut_checks(torch, cfg, dev, smi) -> None:
+    """A two-layer float32 cut of the model at full width, its ``wq`` and
+    ``wk`` at an eighth of the init scale (attention scores of order one;
+    at the init's own scale the softmax is near an argmax and the last bit
+    of a GEMM decides it, as the CPU tests note): decode against
+    teacher forcing (tolerance 2e-2, as the reference's test), then the
+    card's logits and attention maps against the port's CPU path with the
+    same weights (atol 1e-3 and 1e-5, TF32 off)."""
+    import dataclasses
+    from repro_torch.models import build_model
+    cut = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    card = build_model(cut, dev).init(torch.Generator(dev).manual_seed(1))
+    with torch.no_grad():
+        for blk in card.blocks:
+            blk.mixer.wq.mul_(0.125)
+            blk.mixer.wk.mul_(0.125)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 24))
+    with torch.no_grad():
+        full, _ = card.logits({"tokens": tokens})
+    cache = card.init_cache(2, 32)
+    lp, cache = card.prefill({"tokens": tokens[:, :16]}, cache)
+    steps = [(lp[:, 0], full[:, 15])]
+    for pos in range(16, 24):
+        ld, cache = card.decode_step(cache, tokens[:, pos:pos + 1], pos)
+        steps.append((ld[:, 0], full[:, pos]))
+    err = max(float((got - want).abs().max()) for got, want in steps)
+    if not all(bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
+               for got, want in steps):
+        fail(f"producer: decode leaves teacher forcing (max err {err})")
+    cpu = build_model(cut, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        e_logits = float((card.logits(batch)[0].cpu() -
+                          cpu.logits(batch)[0]).abs().max())
+    e_maps = float((card.attention_maps(batch).cpu() -
+                    cpu.attention_maps(batch)).abs().max())
+    if e_logits > 1e-3 or e_maps > 1e-5:
+        fail(f"producer: the card's float32 cut differs from the CPU "
+             f"(logits {e_logits}, attention maps {e_maps})")
+    print(f"producer check: 2-layer float32 cut at full width: prefill + 8 "
+          f"decode steps equal teacher forcing (max err {err:.3e}, "
+          f"rtol = atol = 2e-2); card vs CPU max err logits {e_logits:.3e} "
+          f"(atol 1e-3), attention maps {e_maps:.3e} (atol 1e-5), TF32 off "
+          f"({smi})")
+
+
+def producer_phase(torch, dev, smi) -> None:
+    """Phase 10: the mask producers.  granite-3.0-2B at full width (random
+    weights from generator seed 0) serves prefill and greedy decode,
+    harvests 4,096 224x224 last-layer attention masks from
+    ``SyntheticLMData`` through ``PrefetchIterator`` and one batch of input
+    saliency; the masks are ingested into a card store (the CHI kernel's
+    path) and queried on the device and host backends and as naive scans
+    in a launch window of their own; then the top-k's masks and token rows
+    are augmented."""
+    import gc
+    from repro_torch.configs import load_arch
+    from repro_torch.core import (CHIConfig, MaskStore, augment, build_chi_np,
+                                  saliency)
+    from repro_torch.core import queries as tq
+    from repro_torch.core.store import MASK_META_DTYPE
+    from repro_torch.data.pipeline import (AugmentedData, PrefetchIterator,
+                                           SyntheticLMData)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import (count_params, cross_entropy,
+                                           logits_from_tied, rms_norm)
+    from torch.utils.checkpoint import checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = load_arch(PRODUCER_ARCH)
+
+    # -- 10a. build the model at full width -----------------------------------
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = count_params(model)
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if n_params != config_params(cfg):
+        fail(f"producer: {n_params:,} parameters, the config gives "
+             f"{config_params(cfg):,}")
+    print(f"producer model: {cfg.name} {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}), {cfg.dtype}: {n_params:,} parameters, "
+          f"{n_bytes:,} B; random init {time.perf_counter() - t0:.1f} s "
+          f"({smi})")
+
+    # -- 10b. serve: prefill, then greedy decode with the KV cache -----------
+    prompt = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
+    serve.greedy_generate(model, prompt, 2)              # warm-up
+    out = serve.greedy_generate(model, prompt, SERVE_STEPS + 1)
+    if not out["finite"]:
+        fail("producer serve: non-finite logits")
+    step_ms = out["decode_s"] / SERVE_STEPS * 1e3
+    print(f"producer serve: prefill {SERVE_BATCH}x{SERVE_PROMPT} "
+          f"{out['prefill_s'] * 1e3:.3f} ms; {SERVE_STEPS} greedy decode "
+          f"steps x{SERVE_BATCH}: {step_ms:.3f} ms a step, "
+          f"{SERVE_STEPS * SERVE_BATCH / out['decode_s']:.1f} tok/s "
+          f"(bound {n_bytes / PEAK_BYTES_S * 1e3:.3f} ms a step: the "
+          f"weights read once); logits finite; sample "
+          f"{out['tokens'][0, :8].tolist()} ({smi})")
+    producer_cut_checks(torch, cfg, dev, smi)
+
+    # -- 10c. harvest: last-layer attention masks, then input saliency -------
+    data = SyntheticLMData(cfg, H, N_PRODUCED, seed=0).batch_at(0)
+    source = ({"tokens": data["tokens"][i:i + PRODUCER_BATCH]}
+              for i in range(0, N_PRODUCED, PRODUCER_BATCH))
+    model.attention_maps({"tokens": data["tokens"][:2]})   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    produced = [saliency.last_layer_attention(model.attention_maps(b))
+                for b in PrefetchIterator(source, depth=2)]
+    masks_dev = torch.cat(produced)
+    torch.cuda.synchronize()
+    harvest_s = time.perf_counter() - t0
+    del produced
+    masks = masks_dev.cpu().numpy()
+    if masks.shape != (N_PRODUCED, H, W) or masks.dtype != np.float32:
+        fail(f"producer: masks {masks.shape} {masks.dtype}")
+    if not (np.isfinite(masks).all() and masks.min() >= 0 and
+            masks.max() < 1):
+        fail("producer: masks are not finite values in [0, 1)")
+    n_tok = N_PRODUCED * H
+    # per token: Q/K/V/O, the SwiGLU FFN and the scores and P·V of 39
+    # blocks, plus the last block's Q/K and scores (no LM head)
+    per_tok = (cfg.num_layers - 1) * 2 * (
+        2 * cfg.d_model * cfg.num_heads * cfg.head_dim +
+        2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim +
+        3 * cfg.d_model * cfg.d_ff) + 2 * cfg.d_model * (
+        cfg.num_heads + cfg.num_kv_heads) * cfg.head_dim
+    attn_ops = (2 * cfg.num_layers - 1) * 2 * cfg.num_heads * \
+        cfg.head_dim * H * H * N_PRODUCED // 2
+    flops = per_tok * n_tok + attn_ops
+    print(f"producer harvest: {N_PRODUCED} masks {H}x{W} float32 "
+          f"({masks.nbytes:,} B) from {n_tok:,} tokens in {harvest_s:.3f} s: "
+          f"{n_tok / harvest_s:,.0f} tok/s, {N_PRODUCED / harvest_s:.1f} "
+          f"masks/s; {flops:.4e} FLOP, bound {flops / PEAK_BF16_OPS_S:.3f} s "
+          f"at the bf16 peak ({smi})")
+    del masks_dev
+
+    model.requires_grad_(False)
+    batch = {"tokens": data["tokens"][:PRODUCER_BATCH],
+             "labels": data["labels"][:PRODUCER_BATCH]}
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    labels = torch.as_tensor(batch["labels"], device=dev)
+
+    def loss_fn(m, b, emb):
+        """The stack run from injected embeddings, each block recomputed
+        in the backward pass, then the tied head's cross-entropy."""
+        pos = torch.arange(emb.shape[1], device=emb.device).expand(
+            emb.shape[:2])
+        x = emb
+        for blk in m.blocks:
+            x = checkpoint(blk, x, pos, use_reentrant=False)
+        h = rms_norm(x, m.final_norm, m.cfg.norm_eps)
+        return cross_entropy(logits_from_tied(m.embedding, h,
+                                              m.cfg.vocab_size), labels)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = saliency.input_saliency(loss_fn, model, {
+        **batch, "embeddings": model.embedding[tokens] * torch.tensor(
+            cfg.embed_scale, dtype=model.dtype)})
+    grid = saliency.resize_mask(saliency.tokens_to_grid(
+        scores.float(), 16, 14), H, W)
+    torch.cuda.synchronize()
+    sal_s = time.perf_counter() - t0
+    g = grid.cpu().numpy()
+    # bf16 scores: normalize01's 1 - 1e-6 rounds to 1.0 (the reference's
+    # fault too), so the top score is 1.0, not below it
+    if g.shape != (PRODUCER_BATCH, H, W) or not np.isfinite(g).all() or \
+            g.min() < 0 or g.max() > 1 or not (g > 0).any():
+        fail("producer input saliency: not finite masks in [0, 1]")
+    print(f"producer input saliency: {PRODUCER_BATCH} x {H} tokens through "
+          f"all {cfg.num_layers} blocks and back in {sal_s:.3f} s, "
+          f"tokens_to_grid 16x14 -> resize_mask {H}x{W}, values in "
+          f"[{g.min()}, {g.max()}] (bf16 scores; top score "
+          f"{float(scores.max())}); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+    del model, scores, grid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10d-e. index, then query: one launch window -------------------------
+    meta = make_meta(N_PRODUCED, MASK_META_DTYPE)
+    meta["image_id"] = np.arange(N_PRODUCED)
+    meta["mask_type"] = 1
+    chi_cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
+    provided = np.tile(np.asarray(PRODUCER_ROI, np.int32), (N_PRODUCED, 1))
+    r0, c0, r1, c1 = PRODUCER_ROI
+    span = masks[:, r0:r1, c0:c1]
+    share = ((span >= 0.01) & (span < 1.0)).mean(axis=(1, 2))
+    sqls = producer_sql(float(np.median(share)))
+    largest: dict = {}
+    undo = record_largest(ops, PRODUCER_KERNELS, largest)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    store, _, _ = ingest(torch, MaskStore, chi_cfg, dev, meta,
+                         (masks[:N_PRODUCED_FIRST],
+                          masks[N_PRODUCED_FIRST:]), ops, packed=False,
+                         label="producer ingest")
+    results = run_queries(torch, tq, ops, store, sqls, provided, "producer ")
+    naive = naive_scans(torch, tq, ops, store, sqls, provided)
+    undo()
+    close_window(ops, "index+query", PRODUCER_KERNELS, t0, kind="producer")
+    sample = slice(0, 64)
+    want = build_chi_np(masks[N_PRODUCED_FIRST:][sample], chi_cfg)
+    if not np.array_equal(store.chi_chunks[1][sample], want):
+        fail("producer: the appended CHI chunk differs from build_chi_np")
+    print("producer ingest check: the appended CHI chunk equals "
+          "build_chi_np on a 64-mask sample")
+    check_answers(results, naive, sqls, "producer ")
+    for qname, _ in sqls:
+        res = results[(qname, "device")][0]
+        n_out = len(res[0]) if isinstance(res, tuple) else len(res)
+        if not 0 < n_out < N_PRODUCED:
+            fail(f"producer {qname}: {n_out} of {N_PRODUCED} masks")
+    for name in PRODUCER_KERNELS:
+        if name not in largest:
+            fail(f"producer: {name} was never called")
+        mesh_parity(torch, ops, name, largest[name][1], "producer window",
+                    smi, kind="producer")
+
+    # -- 10f. augment the top-k's masks and token rows -----------------------
+    ids = np.asarray(results[("scenario1_topk", "device")][0][0])
+    imgs = torch.as_tensor(masks[ids], device=dev)
+    out = augment.randomize_outside_roi(torch.Generator(dev).manual_seed(0),
+                                        imgs, provided[ids])
+    inside = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    inside[r0:r1, c0:c1] = True
+    changed = float((out != imgs)[:, ~inside].float().mean())
+    if not torch.equal(out[:, inside], imgs[:, inside]) or changed < 0.999:
+        fail(f"producer augment: inside the ROI changed or outside kept "
+             f"({changed} of the outside pixels changed)")
+    toks = torch.as_tensor(data["tokens"], device=dev)
+    selected = torch.zeros(N_PRODUCED, dtype=torch.bool, device=dev)
+    selected[torch.as_tensor(ids, device=dev)] = True
+    mixed = augment.mix_augmented(torch.Generator(dev).manual_seed(1), toks,
+                                  selected, cfg.vocab_size)
+    redrawn = float((mixed[selected] != toks[selected]).float().mean())
+    if not torch.equal(mixed[~selected], toks[~selected]) or redrawn < 0.9 \
+            or int(mixed.max()) >= cfg.vocab_size:
+        fail("producer mix_augmented: rows other than the selected changed")
+    aug = AugmentedData(SyntheticLMData(cfg, H, PRODUCER_BATCH, seed=1))
+    rows = mixed[selected].cpu().numpy()
+    aug.add_augmented({"tokens": rows, "labels": rows})
+    mixed_batch = aug.batch_at(0)
+    base = aug.base.batch_at(0)
+    half = PRODUCER_BATCH // 2
+    if not (np.array_equal(mixed_batch["tokens"][:half], rows[:half]) and
+            np.array_equal(mixed_batch["tokens"][half:],
+                           base["tokens"][half:])):
+        fail("producer AugmentedData: the batch does not mix the rows in")
+    print(f"producer augment: {len(ids)} top-k masks: inside the ROI "
+          f"bit-identical, {changed:.6f} of the outside pixels replaced; "
+          f"mix_augmented redrew {redrawn:.4f} of the {len(ids)} selected "
+          f"rows' tokens and none of the others; AugmentedData mixes "
+          f"{half} of them into a {PRODUCER_BATCH}-row batch")
+    print(f"producer phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2055,6 +2372,10 @@ def main() -> int:
 
     # -- 8-9. the pair operator, then its kernels ---------------------------
     kernels += pair_phase(torch, dev, N_PAIRS, floor_ms, smi)
+
+    # -- 10. the mask producers: a model serves, harvests masks, indexes and
+    # queries them ------------------------------------------------------------
+    producer_phase(torch, dev, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,82 @@
+"""Carry the JAX package's parameters into a port model.
+
+The reference keeps its parameters as a nested dict: ``embedding``,
+``final_norm``, ``groups`` (each leaf stacked over the repeated layer
+groups on a leading axis) and ``tail`` (the layers past the last whole
+group).  The caller hands that tree over as numpy arrays — e.g.
+``jax.tree.map(np.asarray, params)`` — so this module needs neither JAX
+nor the reference; it slices the group axis per layer and loads each
+leaf into the matching parameter of :class:`DecoderLM`, on the model's
+device and in its dtype.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    """numpy → torch; bfloat16 arrays (numpy's ``ml_dtypes`` type) travel
+    as their 16-bit patterns."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:            # a JAX array's read-only view
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _flatten(tree, prefix: str, out: dict) -> dict:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(v, f"{prefix}{k}.", out)
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def reference_state(model, tree) -> dict:
+    """The reference param ``tree`` as a flat ``{state_dict key: array}``
+    for ``model`` (one entry per layer, the group axis sliced away)."""
+    cfg = model.cfg
+    glen = len(cfg.layer_pattern)
+    n_grouped = cfg.num_groups * glen
+    groups = {leaf.shape[0] for leaf in
+              _flatten(tree.get("groups", {}), "", {}).values()}
+    tail = len(tree.get("tail", {}))
+    if groups - {cfg.num_groups} or tail != len(cfg.tail_layers):
+        raise ValueError(f"the tree holds {sorted(groups)} layer groups and "
+                         f"{tail} tail layers; {cfg.name} has "
+                         f"{cfg.num_groups} and {len(cfg.tail_layers)}")
+    flat = {"embedding": tree["embedding"], "final_norm": tree["final_norm"]}
+    for layer in range(len(model.blocks)):
+        if layer < n_grouped:
+            g, i = divmod(layer, glen)
+            block = _flatten(tree["groups"][f"block{i}"], "", {})
+            block = {k: v[g] for k, v in block.items()}
+        else:
+            block = _flatten(tree["tail"][f"block{layer - n_grouped}"], "",
+                             {})
+        flat.update({f"blocks.{layer}.{k}": v for k, v in block.items()})
+    return flat
+
+
+@torch.no_grad()
+def load_reference_params(model, tree):
+    """Load the reference param ``tree`` (numpy leaves) into ``model``;
+    every parameter must be covered, with its shape.  Returns the model."""
+    own = dict(model.named_parameters())
+    flat = reference_state(model, tree)
+    if set(flat) != set(own):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(own) - set(flat))}, unexpected "
+                         f"{sorted(set(flat) - set(own))}")
+    for name, arr in flat.items():
+        p = own[name]
+        t = _tensor(arr)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, model "
+                             f"{tuple(p.shape)}")
+        p.copy_(t.to(device=p.device, dtype=p.dtype))
+    return model

@@ -1,0 +1,165 @@
+"""Shared model components: init, norms, RoPE, MLPs, embedding, LM head.
+
+The port of the JAX package's ``models/layers.py``.  Parameters are
+``nn.Parameter`` tensors owned by ``nn.Module`` blocks (see
+:mod:`.transformer`); the functions here are plain functions on tensors.
+
+Rounding follows the reference op for op, so a bf16 model computes what
+the JAX one computes: reductions and RoPE angles in f32, products and
+outputs in the compute dtype.  Scalars that the reference folds into a
+bf16 product (``1 + weight``, the embedding scale) are rounded to the
+compute dtype first, as JAX's weak typing does.
+
+Logical sharding axes (``param``'s ``axes``, ``shard_act``,
+``set_activation_rule``) exist only for the JAX launcher's mesh and have
+no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -2.0e38        # masked logit / score value, as in the reference
+
+
+def param(generator: torch.Generator, shape, *, dtype=torch.float32,
+          device="cuda", scale: float | str = "fan_in") -> torch.nn.Parameter:
+    """A parameter with truncated-normal init (or zeros/ones).
+
+    Drawn in f32 on ``device`` from ``generator`` (a generator on that
+    device), scaled, then cast to ``dtype``: the reference's ``param``.
+    ``"fan_in"`` scales by 1/sqrt(shape[-2]) (shape[-1] for vectors)."""
+    if scale == "zeros":
+        v = torch.zeros(shape, dtype=dtype, device=device)
+    elif scale == "ones":
+        v = torch.ones(shape, dtype=dtype, device=device)
+    else:
+        if scale == "fan_in":
+            fan = shape[-2] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / math.sqrt(fan)
+        v = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        v = v.mul_(scale).to(dtype)
+    return torch.nn.Parameter(v)
+
+
+def count_params(module: torch.nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm: variance in f32, output in ``x``'s dtype; ``weight`` is
+    stored as (scale − 1), so a zero init is the identity (``init_rms``).
+
+    Forward only; autograd differentiates it (enough for input
+    saliency).  The reference's hand-written VJP comes with training."""
+    var = x.float().square().mean(-1, keepdim=True)
+    scale = torch.rsqrt(var + eps).to(x.dtype)
+    return x * scale * (1.0 + weight.to(x.dtype))
+
+
+def init_rms(dim: int, device) -> torch.nn.Parameter:
+    """(weight − 1) storage, zeros → identity norm (f32, as the reference)."""
+    return torch.nn.Parameter(torch.zeros(dim, dtype=torch.float32,
+                                          device=device))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (NeoX half-rotation)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) with positions (..., S) — rotate pairs (d, d+D/2).
+
+    Angles in f32; the rotation in ``x``'s dtype (sin and cos are cast
+    first), as the reference keeps it for bf16."""
+    d = x.shape[-1]
+    freqs = torch.as_tensor(rope_frequencies(d, theta).astype(np.float32),
+                            device=x.device)
+    ang = positions.float()[..., None] * freqs              # (..., S, D/2)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)           # (..., S, 1, D/2)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
+    pos = np.arange(length)[:, None]
+    div = np.exp(-math.log(10000.0) * np.arange(0, dim, 2) / dim)
+    enc = np.zeros((length, dim), np.float32)
+    enc[:, 0::2] = np.sin(pos * div)
+    enc[:, 1::2] = np.cos(pos * div)
+    return enc
+
+
+# ---------------------------------------------------------------------------
+# MLPs (``p`` holds the weights under the reference's names)
+# ---------------------------------------------------------------------------
+
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    return (silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    return gelu(x @ p["up"]) @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+
+def embed(p_emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return p_emb[tokens]
+
+
+def logits_from_tied(p_emb: torch.Tensor, h: torch.Tensor,
+                     valid_vocab: int = 0) -> torch.Tensor:
+    """LM head against the (possibly pad-extended) embedding rows.
+    Columns ≥ ``valid_vocab`` (the padding that made the vocab
+    16-divisible) are set to −2.0e38 in the logits' dtype, so softmax and
+    argmax never pick them."""
+    out = h @ p_emb.T
+    if valid_vocab and valid_vocab < p_emb.shape[0]:
+        out[..., valid_vocab:] = NEG_INF
+    return out
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32; labels < 0 are ignored."""
+    logits = logits.float()
+    valid = labels >= 0 if mask is None else mask & (labels >= 0)
+    safe = labels.clamp(min=0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    ll = torch.where(valid, ll, torch.zeros_like(ll))
+    denom = valid.sum().clamp(min=1)
+    return -ll.sum() / denom

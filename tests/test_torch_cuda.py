@@ -816,3 +816,170 @@ def test_mesh_refuses_cpu_shards_for_a_card_store(cuda):
     be = get_backend(stores["cuda"], "mesh")
     assert be.mesh.devices == tuple(
         torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+
+
+# ---------------------------------------------------------------------------
+# the mask producers: granite SMOKE and the saliency functions on the card
+# ---------------------------------------------------------------------------
+
+
+def _granite_twins(cuda, dtype="float32"):
+    """granite SMOKE on the CPU (random init, generator seed 0, ``wq`` and
+    ``wk`` scaled by 1/4 as in the CPU tests: at the init's scale the
+    softmax is near an argmax and a GEMM's summation order decides it)
+    and the same weights on the card."""
+    from repro_torch.configs import load_smoke
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(load_smoke("granite_3_2b"), dtype=dtype)
+    cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for blk in cpu.blocks:
+            blk.mixer.wq.mul_(0.25)
+            blk.mixer.wk.mul_(0.25)
+    card = build_model(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_granite_smoke_on_the_card_matches_cpu(cuda, no_tf32):
+    """Logits, attention maps, prefill and greedy decode in float32: the
+    card's answers within 1e-3 (logits) and 1e-5 (probabilities) of the
+    CPU's, TF32 off."""
+    from repro_torch.launch import serve
+    cpu, card = _granite_twins(cuda)
+    batch = serve.prompt_batch(cpu.cfg, 4, 48)
+    with torch.no_grad():
+        for fn, atol in (("logits", 1e-3), ("attention_maps", 1e-5)):
+            want = getattr(cpu, fn)(batch)
+            got = getattr(card, fn)(batch)
+            if fn == "logits":
+                want, got = want[0], got[0]
+            assert got.device.type == cuda.type
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+    want = serve.greedy_generate(cpu, batch, 6)
+    got = serve.greedy_generate(card, batch, 6)
+    assert got["finite"] and torch.equal(got["tokens"].cpu(), want["tokens"])
+
+
+def test_saliency_and_augment_on_the_card_match_cpu(cuda, no_tf32):
+    from repro_torch.core import augment, saliency
+    from repro_torch.models.layers import (cross_entropy, logits_from_tied,
+                                           rms_norm)
+    rng = np.random.default_rng(0)
+    attn = torch.softmax(torch.from_numpy(
+        rng.standard_normal((3, 2, 4, 32, 32)).astype(np.float32)), -1)
+    scores = torch.from_numpy(rng.random((2, 50)).astype(np.float32))
+    for fn, args in ((saliency.attention_rollout, (attn,)),
+                     (saliency.last_layer_attention, (attn[-1],)),
+                     (saliency.normalize01, (attn[0, 0],)),
+                     (saliency.tokens_to_grid, (scores, 8, 8)),
+                     (saliency.tokens_to_grid, (scores, 4, 5)),
+                     (saliency.resize_mask, (attn[0, 0], 8, 8)),
+                     (saliency.resize_mask, (attn[0, 0], 224, 224)),
+                     (saliency.expert_utilization_map,
+                      (attn[0, 0, :2], 16, 16))):
+        want = fn(*args)
+        got = fn(*(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                   for a in args))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+    cpu, card = _granite_twins(cuda)
+    tokens = rng.integers(0, cpu.cfg.vocab_size, (2, 32))
+
+    def loss_fn(model, batch, emb):
+        pos = torch.arange(emb.shape[1], device=emb.device).expand(
+            emb.shape[:2])
+        x = emb
+        for blk in model.blocks:
+            x = blk(x, pos)
+        h = rms_norm(x, model.final_norm, model.cfg.norm_eps)
+        logits = logits_from_tied(model.embedding, h, model.cfg.vocab_size)
+        return cross_entropy(logits, batch["labels"])
+    sal = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        t = torch.as_tensor(tokens, device=m.device)
+        sal[name] = saliency.input_saliency(loss_fn, m, {
+            "embeddings": m.embedding[t].detach(), "labels": t})
+    torch.testing.assert_close(sal["card"].cpu(), sal["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+    imgs = torch.from_numpy(saliency_masks(4, 32, 32, seed=0)[0]).to(cuda)
+    rois = torch.from_numpy(object_boxes(4, 32, 32, seed=1)).to(cuda)
+    out = augment.randomize_outside_roi(
+        torch.Generator(cuda).manual_seed(0), imgs, rois)
+    inside = ref._roi_mask(rois, 32, 32)
+    assert out.device.type == cuda.type
+    assert torch.equal(out[inside], imgs[inside])
+    assert bool((out[~inside] != imgs[~inside]).all())
+    toks = torch.as_tensor(tokens, device=cuda)
+    sel = torch.tensor([True, False], device=cuda)
+    mixed = augment.mix_augmented(torch.Generator(cuda).manual_seed(1), toks,
+                                  sel, 50)
+    assert torch.equal(mixed[1], toks[1]) and bool((mixed[0] < 50).all())
+
+
+def test_producer_store_query_on_the_card_matches_cpu(cuda, no_tf32):
+    """64 attention masks made by granite SMOKE on the card, ingested on the
+    card, queried on both backends and as a naive scan: the same masks,
+    CHI, answers and ExecStats as the CPU twin's; the ingest and query
+    kernels launch."""
+    from repro_torch.core import saliency
+    from repro_torch.data.pipeline import SyntheticLMData
+    cpu, card = _granite_twins(cuda)
+    batch = SyntheticLMData(cpu.cfg, 64, 64, seed=0).batch_at(0)
+    masks = {"cpu": saliency.last_layer_attention(
+        cpu.attention_maps(batch)).numpy()}
+    masks["cuda"] = saliency.last_layer_attention(
+        card.attention_maps(batch)).cpu().numpy()
+    np.testing.assert_allclose(masks["cuda"], masks["cpu"], rtol=0,
+                               atol=1e-5)
+    meta = np.zeros(64, MASK_META_DTYPE)
+    meta["mask_id"] = np.arange(64)
+    meta["image_id"] = np.arange(64)
+    meta["mask_type"] = 1
+    cfg = CHIConfig(grid=16, num_bins=16, height=64, width=64)
+    rois = np.tile(np.asarray([0, 16, 64, 48], np.int32), (64, 1))
+    ratio = ((masks["cuda"][:, :, 16:48] >= 0.01) & (
+        masks["cuda"][:, :, 16:48] < 1.0)).mean(axis=(1, 2))
+    cut = float(np.median(ratio))
+    sqls = ["SELECT mask_id FROM MasksDatabaseView ORDER BY CP(mask, roi, "
+            "(0.5, 1.0)) / AREA(roi) ASC LIMIT 8;",
+            "SELECT mask_id FROM MasksDatabaseView ORDER BY CP(mask, roi, "
+            "(0.01, 1.0)) / AREA(roi) ASC LIMIT 8;",
+            "SELECT mask_id FROM MasksDatabaseView WHERE CP(mask, roi, "
+            f"(0.01, 1.0)) / AREA(roi) > {cut!r};"]
+    ops.reset_launches()
+    stores = {}
+    for d in ("cuda", "cpu"):
+        stores[d] = MaskStore.create_memory(masks["cuda"][:32], meta[:32],
+                                            cfg, device=d)
+        stores[d].append(masks["cuda"][32:], meta[32:])
+    assert np.array_equal(stores["cuda"].chi_host(), stores["cpu"].chi_host())
+    for sql in sqls:
+        scan, _ = queries.run(sql, stores["cuda"], provided_rois=rois,
+                              use_index=False)
+        for be in ("device", "host"):
+            want, wst = queries.run(sql, stores["cpu"], provided_rois=rois,
+                                    backend=be)
+            got, gst = queries.run(sql, stores["cuda"], provided_rois=rois,
+                                   backend=be)
+            for a in (want, scan):
+                if isinstance(a, tuple):
+                    np.testing.assert_array_equal(got[0], a[0])
+                    np.testing.assert_array_equal(got[1], a[1])
+                else:
+                    np.testing.assert_array_equal(got, a)
+            assert gst == dataclasses.replace(
+                wst, bound_time_s=gst.bound_time_s,
+                verify_time_s=gst.verify_time_s)
+    counts = ops.launch_counts()
+    for k in ("chi_cell_hist", "cp_count_multi", "cp_count"):
+        assert counts[k] > 0, (k, counts)
