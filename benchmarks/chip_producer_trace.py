@@ -6,9 +6,13 @@
 Builds granite-3.0-2B at full width (random weights, ``torch.Generator``
 seed 0, bf16) as ``chip_smoke.py``'s producer phase does, warms up, then
 traces with ``torch.profiler`` (CPU and CUDA activities): the 8 x 128
-prefill and 8 greedy decode steps of ``launch/serve.py``'s path, and one
+prefill and 8 greedy decode steps of ``launch/serve.py``'s path, one
 64-row batch of the harvest (``attention_maps`` then
-``last_layer_attention`` at 224 tokens).  For each window it prints the
+``last_layer_attention`` at 224 tokens), and one full-width train step
+as ``chip_smoke.py``'s phase 11 takes it (``wq``/``wk`` at 1/8 of the
+init scale, 4 x 4,096 tokens in 2 microbatches, AdamW with fp32 master
+weights; one untraced step first).
+For each window it prints the
 host wall time, the device's busy time (the union of the kernels'
 intervals on the timeline) and so its idle share, the kernel count, and
 the kernels that take the most device time; and the card's name and
@@ -61,8 +65,8 @@ def trace(torch, label, fn, smi) -> None:
     print(f"trace {label}: host wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
           f"{len(kernels)} device ops ({smi})")
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=8)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=10)
     print(table)
 
 
@@ -76,6 +80,8 @@ def main() -> int:
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -104,6 +110,27 @@ def main() -> int:
     trace(torch, "harvest batch (64 x 224 tokens)",
           lambda: saliency.last_layer_attention(
               model.attention_maps(tokens)), smi)
+
+    del cache, logits, token
+    torch.cuda.empty_cache()
+    with torch.no_grad():           # as phase 11: the grad norm stays finite
+        for blk in model.blocks:
+            blk.mixer.wq.mul_(0.125)
+            blk.mixer.wk.mul_(0.125)
+    opt_cfg = OptConfig(warmup_steps=0, total_steps=3)
+    opt = init_opt_state(model.parameters(), opt_cfg)
+    step = make_train_step(model, opt_cfg, microbatches=2)
+    data = SyntheticLMData(cfg, 4096, 4, seed=0)
+    opt, _ = step(opt, data.batch_at(0))                      # warm-up
+
+    def train_step():
+        nonlocal opt
+        opt, metrics = step(opt, data.batch_at(1))
+        float(metrics["loss"])
+    trace(torch, "train step (4 x 4096 tokens, 2 microbatches)", train_step,
+          smi)
+    print(f"train step peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB ({smi})")
     return 0
 
 

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py      # 16,384 float32 + 65,536 binary masks,
                                # 8,192 (saliency, attention) pairs and
-                               # 4,096 masks from granite-3.0-2B, 224x224
+                               # 4,096 masks from granite-3.0-2B, 224x224,
+                               # then granite-3.0-2B trained at full width
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -87,7 +88,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``cp_count_multi`` and ``cp_count`` calls are then held against their
    plain versions (``producer parity``); then the top-k's masks are
    augmented outside their ROI and their token rows redrawn and mixed
-   into a batch (``producer …`` lines).
+   into a batch (``producer …`` lines);
+11. training: ``launch/train.py``'s ``run`` (the CLI's ``main`` as a
+   library call) trains granite-3.0-2B at full width from random weights
+   (generator seed 0; ``wq`` and ``wk`` at 1/8 of the init scale, since
+   at the init's own scale the f32 grad norm overflows at 40 layers) for
+   3 steps of 4 x 4,096 ``SyntheticLMData`` tokens
+   in 2 microbatches, AdamW with fp32 master weights: loss, grad norm,
+   lr, step ms, tok/s, MFU, optimizer ms and peak memory per step, every
+   loss and grad norm finite (``train …`` lines); Scenario 1's loop
+   continues from that model and optimizer state: 1,024 last-layer
+   attention masks harvested, indexed (``create_memory`` of 512,
+   ``append`` of 512) and queried with phase 10's two queries on both
+   backends and as naive scans in a launch window of its own (``loop
+   launches``; device == host == naive scan, equal ``ExecStats``), the
+   window's largest ``chi_cell_hist``, ``cp_count_multi`` and ``cp_count``
+   calls held against their plain versions (``loop parity``), the
+   ranking's rows redrawn with ``mix_augmented`` and mixed in through
+   ``AugmentedData``, 2 retrain steps of 64 x 224, and the probe harvested
+   again (``loop …`` lines); then at a two-layer float32 cut at full
+   width: one train step on the card against the CPU, ``rms_norm``'s
+   hand-written VJP against autograd of the plain forward, and a resume
+   from a checkpoint against the uninterrupted run (``train check``
+   lines); last, ``examples/scenario1_debugging_torch.py`` at its own size
+   on the card (``scenario1 example`` lines).
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
@@ -121,6 +145,8 @@ repository's ``src/`` beside it; without either it exits non-zero.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import multiprocessing
 import os
@@ -2224,6 +2250,345 @@ def producer_phase(torch, dev, smi) -> None:
     print(f"producer phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- 11. training on the card ---------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 3
+LOOP_MASKS, LOOP_FIRST, LOOP_RETRAIN = 1024, 512, 2
+
+
+def rel_err(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def mean_in_roi(masks) -> float:
+    """The masks' mean share of their mass inside ``PRODUCER_ROI``."""
+    r0, c0, r1, c1 = PRODUCER_ROI
+    return float((masks[:, r0:r1, c0:c1].sum((1, 2)) /
+                  masks.sum((1, 2))).mean())
+
+
+def harvest(torch, saliency, model, data, n_batches) -> np.ndarray:
+    """Last-layer attention masks of ``data``'s first batches (host
+    float32)."""
+    out = [saliency.last_layer_attention(model.attention_maps(
+        data.batch_at(i))) for i in range(n_batches)]
+    return torch.cat(out).cpu().numpy()
+
+
+def params_within_rule(torch, got, want, noisy, lr_sum) -> float:
+    """``tests/test_torch_train.py``'s rule for params after train steps in
+    float32: within 1e-5 of scale (the reference leaf's largest magnitude,
+    at least 1) plus 1e-5 relative, and up to 2.5 · Σ lr more where a grad
+    element was under the rounding noise.  Fails otherwise; returns the
+    largest error outside and inside the allowance's elements."""
+    worst = [0.0, 0.0]
+    for (name, p), q, n in zip(got, want, noisy):
+        a, b = p.detach().cpu().double(), q.detach().cpu().double()
+        err = (a - b).abs()
+        base = 1e-5 * max(1.0, float(b.abs().max())) + 1e-5 * b.abs()
+        if not bool((err <= base + 2.5 * lr_sum * n).all()):
+            fail(f"train check: {name} leaves the float32 rule (max err "
+                 f"{float(err.max())})")
+        for i, part in enumerate((err[~n], err[n])):
+            if part.numel():
+                worst[i] = max(worst[i], float(part.max()))
+    return worst
+
+
+def train_cut_checks(torch, cfg, dev, smi) -> None:
+    """11c: a two-layer float32 cut of granite at full width (``wq``/``wk``
+    at an eighth of the init scale, as the producer's cut): one train step
+    on the card against the same step on the CPU; ``rms_norm``'s
+    hand-written VJP against autograd of the plain forward; and a resume
+    from a checkpoint against the uninterrupted run."""
+    import dataclasses
+    import tempfile
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import (make_loss_and_grads,
+                                              make_train_step)
+    cut = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=20)
+    data = SyntheticLMData(cut, 64, 4, seed=3)
+
+    def built(seed):
+        m = build_model(cut, dev).init(torch.Generator(dev).manual_seed(seed))
+        with torch.no_grad():
+            for blk in m.blocks:
+                blk.mixer.wq.mul_(0.125)
+                blk.mixer.wk.mul_(0.125)
+        return m
+
+    card = built(1)
+    cpu = build_model(cut, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    batch = data.batch_at(0)
+    _, _, grads = make_loss_and_grads(cpu)(batch)
+    noisy = [g.abs() <= 1e-5 * max(1.0, float(g.abs().max()))
+             for g in grads]
+    met = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        opt = init_opt_state(m.parameters(), opt_cfg)
+        _, met[name] = make_train_step(m, opt_cfg, microbatches=2)(opt, batch)
+    e_loss = rel_err(float(met["card"]["loss"]), float(met["cpu"]["loss"]))
+    e_gn = rel_err(float(met["card"]["grad_norm"]),
+                   float(met["cpu"]["grad_norm"]))
+    if e_loss > 1e-5 or e_gn > 1e-4:
+        fail(f"train check: the card's step differs from the CPU's (loss "
+             f"{e_loss}, grad norm {e_gn} relative)")
+    worst, inside = params_within_rule(
+        torch, list(card.named_parameters()), list(cpu.parameters()), noisy,
+        float(met["cpu"]["lr"]))
+    n_noisy = sum(int(n.sum()) for n in noisy)
+    print(f"train check: 2-layer float32 cut at full width, one step of "
+          f"2 x 2 x 64 tokens on the card vs the CPU: loss "
+          f"{float(met['card']['loss']):.6f} (rel err {e_loss:.3e}, limit "
+          f"1e-5), grad norm {float(met['card']['grad_norm']):.4f} (rel err "
+          f"{e_gn:.3e}, limit 1e-4); params within 1e-5 of scale (max err "
+          f"{worst:.3e}) outside {n_noisy:,} elements whose grads are under "
+          f"the noise (allowed 2.5 lr = {2.5 * float(met['cpu']['lr']):.3e} "
+          f"more; max err there {inside:.3e}); TF32 off ({smi})")
+    del cpu, grads, noisy
+
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal((2, TRAIN_SEQ, cfg.d_model),
+                                            dtype=np.float32), device=dev)
+    w = torch.as_tensor(0.1 * rng.standard_normal(cfg.d_model,
+                                                  dtype=np.float32),
+                        device=dev)
+    g = torch.as_tensor(rng.standard_normal(x.shape, dtype=np.float32),
+                        device=dev)
+    pair = []
+    for fn in (rms_norm, lambda a, b, eps: a * torch.rsqrt(
+            a.square().mean(-1, keepdim=True) + eps) * (1.0 + b)):
+        a, b = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        fn(a, b, cfg.norm_eps).backward(g)
+        pair.append((a.grad, b.grad))
+    errs = []
+    for got, want in zip(*pair):
+        err = float((got - want).abs().max())
+        errs.append(err)
+        if err > 1e-5 * max(1.0, float(want.abs().max())):
+            fail(f"train check: rms_norm's VJP differs from autograd of the "
+                 f"plain forward (max abs err {err})")
+    print(f"train check: rms_norm's hand-written VJP on "
+          f"{tuple(x.shape)} float32 vs autograd of the plain forward: dx "
+          f"max err {errs[0]:.3e}, dw {errs[1]:.3e} (limit 1e-5 of scale) "
+          f"({smi})")
+    del x, g, pair
+
+    def steps(model, opt, step_fn, at):
+        for s in at:
+            opt, _ = step_fn(opt, data.batch_at(s))
+        return opt
+
+    first = built(1)
+    step_fn = make_train_step(first, opt_cfg)
+    opt = steps(first, init_opt_state(first.parameters(), opt_cfg), step_fn,
+                (0,))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ckpt.save(tmp, 1, {"params": first, "opt": opt})
+        save_s = time.perf_counter() - t0
+        steps(first, opt, step_fn, (1, 2))
+        second = built(99)
+        t0 = time.perf_counter()
+        state, at = ckpt.restore_latest(tmp, {
+            "params": second, "opt": init_opt_state(second.parameters(),
+                                                    opt_cfg)})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if at != 1:
+        fail(f"train check: restored step {at}, saved 1")
+    steps(second, state["opt"], make_train_step(second, opt_cfg), (1, 2))
+    err = 0.0
+    for (name, p), q in zip(second.named_parameters(), first.parameters()):
+        e = float((p.detach() - q.detach()).abs().max())
+        if e > 1e-6 * max(1.0, float(q.detach().abs().max())):
+            fail(f"train check: resumed {name} differs by {e}")
+        err = max(err, e)
+    print(f"train check: save at step 1 ({save_s:.1f} s), 2 more steps; "
+          f"restore into a fresh model ({restore_s:.1f} s) and the same 2 "
+          f"steps: params max err {err:.3e} (limit 1e-6 of scale; the "
+          f"embedding's backward may add in any order on the card) ({smi})")
+
+
+def training_phase(torch, dev, smi) -> None:
+    """Phase 11: training.  ``launch/train.py`` trains granite-3.0-2B at
+    full width (11a); Scenario 1's loop continues from its model and
+    optimizer state: harvest, index and query, augment, retrain, harvest
+    again (11b); checks at a two-layer float32 cut (11c); the Scenario 1
+    example at its own size (11d)."""
+    import gc
+    import importlib.util
+    from repro_torch.configs import load_arch
+    from repro_torch.core import CHIConfig, MaskStore, augment, saliency
+    from repro_torch.core import queries as tq
+    from repro_torch.core.store import MASK_META_DTYPE
+    from repro_torch.data.pipeline import AugmentedData, SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = load_arch(PRODUCER_ARCH)
+    n_params = config_params(cfg)
+
+    # -- 11a. the trainer at full width ---------------------------------------
+    # Random weights from generator seed 0, ``wq`` and ``wk`` at an eighth
+    # of the init scale (scores of order one, as the producer's cut): at
+    # the init's own scale the grads grow ~5x a layer and at 40 layers the
+    # f32 global norm overflows, so the clip zeroes every update (the
+    # reference's init and arithmetic; ROADMAP §3).
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.mixer.wq.mul_(0.125)
+            blk.mixer.wk.mul_(0.125)
+    print(f"train: {cfg.name} at full width, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens a step in {TRAIN_MICRO} microbatches, {TRAIN_STEPS} "
+          f"steps; wq and wk at 1/8 of the init scale; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated before "
+          f"the optimizer state ({smi})")
+    run = train_cli.run(["--arch", PRODUCER_ARCH, "--device", str(dev),
+                         "--steps", str(TRAIN_STEPS), "--seq-len",
+                         str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+                         "--microbatches", str(TRAIN_MICRO),
+                         "--log-every", "1"], model=model)
+    model, opt, opt_cfg = run["model"], run["opt_state"], run["opt_cfg"]
+    if len(run["records"]) != TRAIN_STEPS:
+        fail(f"train: {len(run['records'])} steps run")
+    for rec in run["records"]:
+        if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
+            fail(f"train step {rec['step']}: loss {rec['loss']}, grad norm "
+                 f"{rec['grad_norm']}")
+        mfu = 6 * n_params * rec["tokens"] / rec["step_s"] / PEAK_BF16_OPS_S
+        print(f"train step {rec['step']}: loss {rec['loss']:.4f}, grad norm "
+              f"{rec['grad_norm']:.4f}, lr {rec['lr']:.4e}, step "
+              f"{rec['step_s'] * 1e3:.3f} ms, "
+              f"{rec['tokens'] / rec['step_s']:,.1f} tok/s, MFU {mfu:.4f} "
+              f"(6 N T / step / 989 TFLOP/s), optimizer "
+              f"{rec['opt_s'] * 1e3:.3f} ms, peak "
+              f"{rec['peak_bytes'] / 1e9:.2f} GB ({smi})")
+
+    # -- 11b. Scenario 1's loop at full width -------------------------------
+    probe = SyntheticLMData(cfg, H, PRODUCER_BATCH)
+    n_batches = LOOP_MASKS // PRODUCER_BATCH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = harvest(torch, saliency, model, probe, n_batches)
+    harvest_s = time.perf_counter() - t0
+    if masks.shape != (LOOP_MASKS, H, W) or not (
+            np.isfinite(masks).all() and masks.min() >= 0 and
+            masks.max() < 1):
+        fail("loop: harvested masks are not finite values in [0, 1)")
+    before = mean_in_roi(masks)
+    print(f"loop harvest: {LOOP_MASKS} masks {H}x{W} from the trained model "
+          f"in {harvest_s:.3f} s ({LOOP_MASKS / harvest_s:.1f} masks/s)")
+
+    meta = make_meta(LOOP_MASKS, MASK_META_DTYPE)
+    meta["image_id"] = np.arange(LOOP_MASKS)
+    meta["mask_type"] = 1
+    chi_cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
+    provided = np.tile(np.asarray(PRODUCER_ROI, np.int32), (LOOP_MASKS, 1))
+    r0, c0, r1, c1 = PRODUCER_ROI
+    span = masks[:, r0:r1, c0:c1]
+    share = ((span >= 0.01) & (span < 1.0)).mean(axis=(1, 2))
+    sqls = producer_sql(float(np.median(share)))
+    largest: dict = {}
+    undo = record_largest(ops, PRODUCER_KERNELS, largest)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    store, _, _ = ingest(torch, MaskStore, chi_cfg, dev, meta,
+                         (masks[:LOOP_FIRST], masks[LOOP_FIRST:]), ops,
+                         packed=False, label="loop ingest")
+    results = run_queries(torch, tq, ops, store, sqls, provided, "loop ")
+    naive = naive_scans(torch, tq, ops, store, sqls, provided)
+    undo()
+    close_window(ops, "index+query", PRODUCER_KERNELS, t0, kind="loop")
+    check_answers(results, naive, sqls, "loop ")
+    for name in PRODUCER_KERNELS:
+        if name not in largest:
+            fail(f"loop: {name} was never called")
+        mesh_parity(torch, ops, name, largest[name][1], "loop window", smi,
+                    kind="loop")
+
+    ids = np.asarray(results[("scenario1_topk", "device")][0][0])
+    rows = store.positions_of(ids)
+    tokens = np.concatenate([probe.batch_at(i)["tokens"]
+                             for i in range(n_batches)])
+    labels = np.concatenate([probe.batch_at(i)["labels"]
+                             for i in range(n_batches)])
+    selected = torch.zeros(LOOP_MASKS, dtype=torch.bool, device=dev)
+    selected[torch.as_tensor(rows, device=dev)] = True
+    mixed = augment.mix_augmented(torch.Generator(dev).manual_seed(2),
+                                  torch.as_tensor(tokens, device=dev),
+                                  selected, cfg.vocab_size).cpu().numpy()
+    if not np.array_equal(mixed[~selected.cpu().numpy()],
+                          tokens[~selected.cpu().numpy()]):
+        fail("loop mix_augmented: rows other than the flagged changed")
+    aug = AugmentedData(SyntheticLMData(cfg, H, PRODUCER_BATCH, seed=1))
+    half = PRODUCER_BATCH // 2
+    for i in range(0, len(rows), half):
+        part = rows[i:i + half]
+        aug.add_augmented({"tokens": mixed[part], "labels": labels[part]})
+    step_fn = make_train_step(model, opt_cfg)
+    retrain = []
+    for s in range(LOOP_RETRAIN):
+        batch = aug.batch_at(s)
+        if not np.array_equal(batch["tokens"][:half],
+                              mixed[rows[s * half:(s + 1) * half]]):
+            fail("loop AugmentedData: the flagged rows are not mixed in")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, met = step_fn(opt, batch)
+        loss, gn = float(met["loss"]), float(met["grad_norm"])
+        retrain.append((loss, gn, time.perf_counter() - t0))
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            fail(f"loop retrain step {s}: loss {loss}, grad norm {gn}")
+    masks2 = harvest(torch, saliency, model, probe, n_batches)
+    print(f"loop augment + retrain: {len(rows)} flagged rows redrawn with "
+          f"mix_augmented and mixed {half} to a batch through "
+          f"AugmentedData; {LOOP_RETRAIN} steps of {PRODUCER_BATCH} x {H}: "
+          + "; ".join(f"loss {lo:.4f}, grad norm {g:.4f}, {t * 1e3:.3f} ms"
+                      for lo, g, t in retrain)
+          + f"; mean in-ROI attention of the probe {before:.6f} before, "
+          f"{mean_in_roi(masks2):.6f} after (not asserted: random weights, "
+          f"{LOOP_RETRAIN} steps) ({smi})")
+    del model, opt, run, step_fn, store, masks, masks2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11c. checks at the two-layer float32 cut -----------------------------
+    train_cut_checks(torch, cfg, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11d. the Scenario 1 example at its own size --------------------------
+    path = os.path.join(ROOT, "examples", "scenario1_debugging_torch.py")
+    spec = importlib.util.spec_from_file_location("scenario1_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        example.main(["--device", str(dev)])
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"scenario1 example: {line}")
+    if len(lines) < 4 or not lines[1].startswith("query flagged"):
+        fail("scenario1 example: its lines are missing")
+    print(f"scenario1 example: {time.perf_counter() - t0:.1f} s on {dev}")
+    print(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2376,6 +2741,9 @@ def main() -> int:
     # -- 10. the mask producers: a model serves, harvests masks, indexes and
     # queries them ------------------------------------------------------------
     producer_phase(torch, dev, smi)
+
+    # -- 11. training: the trainer at full width, then Scenario 1's loop ----
+    training_phase(torch, dev, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-"""Command-line entry points of the port (serving; training comes later)."""
+"""Command-line entry points of the port: serving and training."""

@@ -7,7 +7,10 @@ group).  The caller hands that tree over as numpy arrays — e.g.
 ``jax.tree.map(np.asarray, params)`` — so this module needs neither JAX
 nor the reference; it slices the group axis per layer and loads each
 leaf into the matching parameter of :class:`DecoderLM`, on the model's
-device and in its dtype.
+device and in its dtype.  The optimizer's moments and master copies have
+the params' tree structure and travel the same way
+(:func:`load_reference_opt_state`); :func:`reference_tree` is the
+inverse, port → reference layout, which checkpoints are written in.
 """
 
 from __future__ import annotations
@@ -15,10 +18,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..train.optimizer import OptState
+
 
 def _tensor(a) -> torch.Tensor:
     """numpy → torch; bfloat16 arrays (numpy's ``ml_dtypes`` type) travel
-    as their 16-bit patterns."""
+    as their 16-bit patterns.  A tensor passes through."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:            # a JAX array's read-only view
         a = a.copy()
@@ -80,3 +87,74 @@ def load_reference_params(model, tree):
                              f"{tuple(p.shape)}")
         p.copy_(t.to(device=p.device, dtype=p.dtype))
     return model
+
+
+def _put(tree: dict, keys, value) -> None:
+    *path, leaf = keys
+    for k in path:
+        tree = tree.setdefault(k, {})
+    tree[leaf] = value
+
+
+def reference_tree(model, values) -> dict:
+    """The inverse of :func:`reference_state`: ``values``, one tensor per
+    parameter of ``model`` in ``named_parameters()`` order, as the
+    reference's nested tree (each group leaf stacked on a leading axis),
+    leaves as tensors on the values' device in their own dtypes (bf16
+    stays bf16, which numpy cannot hold without ``ml_dtypes``)."""
+    cfg = model.cfg
+    glen = len(cfg.layer_pattern)
+    n_grouped = cfg.num_groups * glen
+    names = [n for n, _ in model.named_parameters()]
+    values = list(values)
+    if len(values) != len(names):
+        raise ValueError(f"{len(values)} values for {len(names)} parameters")
+    tree: dict = {}
+    stacks: dict = {}
+    for name, v in zip(names, values):
+        head, _, rest = name.partition(".")
+        if head != "blocks":
+            tree[name] = v.detach()
+            continue
+        layer, _, sub = rest.partition(".")
+        layer = int(layer)
+        if layer < n_grouped:        # layers come in order: group g at g
+            stacks.setdefault((f"block{layer % glen}", sub), []).append(
+                v.detach())
+        else:
+            _put(tree, ["tail", f"block{layer - n_grouped}",
+                        *sub.split(".")], v.detach())
+    for (block, sub), per_group in stacks.items():
+        _put(tree, ["groups", block, *sub.split(".")],
+             torch.stack(per_group))
+    return tree
+
+
+def reference_opt_tree(model, opt) -> tuple:
+    """An :class:`~repro_torch.train.optimizer.OptState` of ``model`` as
+    the reference's ``OptState(step, mu, nu, master)`` fields (a plain
+    tuple; ``master`` is ``()`` in low-memory mode)."""
+    return (opt.step.detach(), reference_tree(model, opt.mu),
+            reference_tree(model, opt.nu),
+            reference_tree(model, opt.master) if len(opt.master) else ())
+
+
+def load_reference_opt_state(model, opt_tree, device=None):
+    """The reference's ``OptState(step, mu, nu, master)`` (numpy or tensor
+    leaves, the params' tree structure) as the port's ``OptState`` for
+    ``model``, on ``device`` (default: the model's), each leaf in its own
+    dtype."""
+    device = model.device if device is None else torch.device(device)
+    names = [n for n, _ in model.named_parameters()]
+    step, mu, nu, master = opt_tree
+
+    def per_param(tree):
+        flat = reference_state(model, tree)
+        if set(flat) != set(names):
+            raise ValueError("optimizer tree does not cover the parameters")
+        return [_tensor(flat[n]).to(device).clone() for n in names]
+
+    return OptState(
+        torch.tensor(int(step), dtype=torch.int32, device=device),
+        per_param(mu), per_param(nu),
+        per_param(master) if len(master) else ())

@@ -57,16 +57,40 @@ def count_params(module: torch.nn.Module) -> int:
 # ---------------------------------------------------------------------------
 
 
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with the reference's hand-written VJP (the fused-layernorm
+    backward): reductions in f32, while the (…, D) output and its
+    cotangent stay in the compute dtype.  Autograd over the forward would
+    route part of the gradient through the f32 variance branch and round
+    differently."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        var = x.float().square().mean(-1, keepdim=True)
+        s32 = torch.rsqrt(var + eps)                       # (…, 1) f32
+        ctx.save_for_backward(x, s32, weight)
+        return x * s32.to(x.dtype) * (1.0 + weight.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s32, weight = ctx.saved_tensors
+        xf = x.float()
+        gw = g.float() * (1.0 + weight.float())
+        d = x.shape[-1]
+        # dx = s·gw − x·s³·mean(gw·x)
+        m = (gw * xf).sum(-1, keepdim=True) / d
+        dx = s32 * gw - xf * (s32 * s32 * s32) * m
+        dw = (g.float() * xf * s32).reshape(-1, d).sum(0)
+        return dx.to(x.dtype), dw.to(weight.dtype), None
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm: variance in f32, output in ``x``'s dtype; ``weight`` is
     stored as (scale − 1), so a zero init is the identity (``init_rms``).
-
-    Forward only; autograd differentiates it (enough for input
-    saliency).  The reference's hand-written VJP comes with training."""
-    var = x.float().square().mean(-1, keepdim=True)
-    scale = torch.rsqrt(var + eps).to(x.dtype)
-    return x * scale * (1.0 + weight.to(x.dtype))
+    Differentiable in ``x`` and ``weight`` through the reference's
+    hand-written VJP (``_RMSNorm``); ``eps`` is not."""
+    return _RMSNorm.apply(x, weight, eps)
 
 
 def init_rms(dim: int, device) -> torch.nn.Parameter:

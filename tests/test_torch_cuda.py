@@ -983,3 +983,67 @@ def test_producer_store_query_on_the_card_matches_cpu(cuda, no_tf32):
     counts = ops.launch_counts()
     for k in ("chi_cell_hist", "cp_count_multi", "cp_count"):
         assert counts[k] > 0, (k, counts)
+
+
+# ---------------------------------------------------------------------------
+# training: rms_norm's hand-written VJP and a train step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rms_norm_vjp_on_the_card_matches_cpu(cuda, dtype):
+    """Output, ``dx`` and ``dw`` on the card against the CPU's (rtol = atol
+    = 1e-5 of scale in float32, 2e-2 in bf16, as the CPU tests)."""
+    from repro_torch.models.layers import rms_norm
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 256)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy((0.1 * rng.standard_normal(256)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((4, 64, 256)).astype(
+        np.float32)).to(dtype)
+    out = {}
+    for dev in ("cpu", cuda):
+        a = x.to(dev).clone().requires_grad_(True)
+        b = w.to(dev).clone().requires_grad_(True)
+        y = rms_norm(a, b, 1e-6)
+        y.backward(g.to(dev))
+        out[str(dev)] = [t.detach().cpu().double() for t in (y, a.grad,
+                                                             b.grad)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale)
+
+
+def test_train_step_on_the_card_matches_cpu(cuda, no_tf32):
+    """One train step of granite SMOKE in float32 (two microbatches) on the
+    card and on the CPU from the same weights: loss within 1e-5 relative,
+    grad norm within 1e-4, and the updated params within the CPU tests'
+    rule (``test_torch_train.close_after_steps``: 1e-5 of scale, and up to
+    2.5·lr more where a grad element is under the rounding noise)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import (make_loss_and_grads,
+                                              make_train_step)
+    cpu, card = _granite_twins(cuda)
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=20)
+    batch = SyntheticLMData(cpu.cfg, 32, 4).batch_at(0)
+    _, _, grads = make_loss_and_grads(cpu, 2)(batch)
+    noisy = [g.abs() <= 1e-5 * max(1.0, float(g.abs().max()))
+             for g in grads]
+    metrics = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        opt = init_opt_state(m.parameters(), opt_cfg)
+        _, metrics[name] = make_train_step(m, opt_cfg, microbatches=2)(
+            opt, batch)
+    assert float(metrics["card"]["loss"]) == pytest.approx(
+        float(metrics["cpu"]["loss"]), rel=1e-5)
+    assert float(metrics["card"]["grad_norm"]) == pytest.approx(
+        float(metrics["cpu"]["grad_norm"]), rel=1e-4)
+    lr = float(metrics["cpu"]["lr"])
+    for (name, p), q, n in zip(card.named_parameters(), cpu.parameters(),
+                               noisy):
+        got, want = p.detach().cpu().double(), q.detach().double()
+        allowed = 1e-5 * max(1.0, float(want.abs().max())) + \
+            1e-5 * want.abs() + 2.5 * lr * n
+        assert bool(((got - want).abs() <= allowed).all()), name
