@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the mask producer's time goes on one GPU: a profiler trace.
 
-    python3 benchmarks/chip_producer_trace.py
+    python3 benchmarks/chip_producer_trace.py [--arch ARCH]
 
-Builds granite-3.0-2B at full width (random weights, ``torch.Generator``
+With no ``--arch`` (or ``granite_3_2b``) it builds granite-3.0-2B at full width (random weights, ``torch.Generator``
 seed 0, bf16) as ``chip_smoke.py``'s producer phase does, warms up, then
 traces with ``torch.profiler`` (CPU and CUDA activities): the 8 x 128
 prefill and 8 greedy decode steps of ``launch/serve.py``'s path, one
@@ -16,11 +16,18 @@ For each window it prints the
 host wall time, the device's busy time (the union of the kernels'
 intervals on the timeline) and so its idle share, the kernel count, and
 the kernels that take the most device time; and the card's name and
-power limit.  Needs a CUDA device.
+power limit.  With ``--arch recurrentgemma_2b``, ``mamba2_13b`` or
+``whisper_large_v3`` it builds that model at full width the same way and
+traces what ``chip_smoke.py``'s phase 12 runs: 8 greedy decode steps
+after phase 12's prefill (8 x 128 tokens; whisper 8 x 1,500 frames and 16
+tokens) and one harvest batch of the family's mask source (64 x 224
+tokens of attention maps or input saliency; 16 whisper cross-attention
+maps of 448 tokens x 1,500 frames).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -28,6 +35,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+OTHER_ARCHS = ("recurrentgemma_2b", "mamba2_13b", "whisper_large_v3")
 
 
 def busy_ms(events) -> float:
@@ -70,7 +79,50 @@ def trace(torch, label, fn, smi) -> None:
     print(table)
 
 
-def main() -> int:
+def trace_other(torch, arch, smi) -> None:
+    """Phase 12's serve and harvest paths of ``arch`` at full width: 8
+    decode steps, then one harvest batch."""
+    import chip_smoke
+    from repro_torch.configs import load_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    cfg = load_arch(arch)
+    model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
+    model.requires_grad_(False)
+    prompt = chip_smoke.other_prompt(serve, cfg)
+    serve.greedy_generate(model, prompt, 3)                  # warm-up
+    b, p_len = prompt["tokens"].shape
+    cache = (model.init_cache(b, enc_len=prompt["audio_feats"].shape[1])
+             if cfg.is_encoder_decoder else model.init_cache(b, p_len + 16))
+    logits, cache = model.prefill(prompt, cache)
+    token = logits[:, -1:].argmax(-1)
+
+    def decode():
+        nonlocal cache, token
+        for i in range(8):
+            logits, cache = model.decode_step(cache, token, p_len + i)
+            token = logits[:, -1:].argmax(-1)
+    decode()                                                 # warm-up
+    trace(torch, f"{cfg.name} decode (8 steps x{b})", decode, smi)
+    del cache, logits, token
+    torch.cuda.empty_cache()
+
+    one = chip_smoke.OTHER_BATCH[arch]
+    chip_smoke.other_harvest(torch, model, cfg, arch, dev, one)  # warm-up
+    what = []
+    trace(torch, f"{cfg.name} harvest batch ({one} masks)",
+          lambda: what.append(chip_smoke.other_harvest(
+              torch, model, cfg, arch, dev, one)[2]), smi)
+    print(f"{cfg.name} harvest batch: {what[0]}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite_3_2b",
+                    choices=("granite_3_2b",) + OTHER_ARCHS)
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_producer_trace: needs a CUDA device", file=sys.stderr)
@@ -88,6 +140,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
+    if args.arch != "granite_3_2b":
+        trace_other(torch, args.arch, smi)
+        return 0
     dev = torch.device("cuda")
     cfg = load_arch("granite_3_2b")
     model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))

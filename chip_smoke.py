@@ -4,7 +4,9 @@
     python3 chip_smoke.py      # 16,384 float32 + 65,536 binary masks,
                                # 8,192 (saliency, attention) pairs and
                                # 4,096 masks from granite-3.0-2B, 224x224,
-                               # then granite-3.0-2B trained at full width
+                               # then granite-3.0-2B trained at full width,
+                               # then recurrentgemma-2b, mamba2-1.3b and
+                               # whisper-large-v3 serving and making masks
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -111,7 +113,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    hand-written VJP against autograd of the plain forward, and a resume
    from a checkpoint against the uninterrupted run (``train check``
    lines); last, ``examples/scenario1_debugging_torch.py`` at its own size
-   on the card (``scenario1 example`` lines).
+   on the card (``scenario1 example`` lines);
+12. the other producers: recurrentgemma-2b (26 layers, RG-LRU and local
+   MQA), mamba2-1.3b (48 SSD layers) and whisper-large-v3 (32 + 32
+   layers) at full width and depth in bf16 (random weights, generator
+   seed 0), one after another: ``launch/serve.py``'s prefill (8 x 128
+   tokens; whisper 8 x 1,500 frames and 16 tokens) and 32 greedy decode
+   steps beside the decode bound (the bytes of the weights, caches and
+   states a step reads at 3.35 TB/s); a float32 cut at full width
+   (recurrentgemma 3 layers, mamba2 2, whisper 2 + 2) held to teacher
+   forcing and to the CPU; masks made as each family's source makes them
+   (recurrentgemma: 4,096 attention maps of its last local layer;
+   mamba2: 1,024 input-saliency grids, ``attention_maps`` being ``None``;
+   whisper: 1,024 cross-attention maps of 448 tokens x 1,500 frames,
+   resized to 224x224), then phase 10's index-and-query window over them
+   (``other <model> launches`` and ``other <model> parity`` lines).
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
@@ -191,8 +207,24 @@ PRODUCER_BATCH = 64
 N_PRODUCED_FIRST = 2048     # create_memory on these, append the rest
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 128, 32
 PRODUCER_ROI = (0, 56, 224, 168)    # the key columns of the object span
+PRODUCER_LIMIT = 256        # the ranking's LIMIT
 PRODUCER_KERNELS = ("chi_cell_hist", "cp_count_multi", "cp_count")
 PEAK_BF16_OPS_S = 989e12    # H100 SXM dense bf16 tensor cores
+
+# the other producers (phase 12): the recurrent and encoder-decoder
+# families at full width and depth (random weights)
+OTHER_ARCHS = ("recurrentgemma_2b", "mamba2_13b", "whisper_large_v3")
+# each one's parameters at full width: jax.eval_shape of the JAX package's
+# init (tests/test_torch_recurrent.py and test_torch_encdec.py hold the
+# port's count and every leaf's shape to it)
+OTHER_PARAMS = {"recurrentgemma_2b": 2_894_481_920,
+                "mamba2_13b": 1_343_790_080,
+                "whisper_large_v3": 1_534_732_800}
+OTHER_MASKS = {"recurrentgemma_2b": 4096, "mamba2_13b": 1024,
+               "whisper_large_v3": 1024}
+OTHER_BATCH = {"recurrentgemma_2b": 64, "mamba2_13b": 64,
+               "whisper_large_v3": 16}
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 16     # its 30-s window; a prompt
 
 FILTER_SQL = ("SELECT mask_id FROM MasksDatabaseView "
               "WHERE CP(mask, roi, (0.8, 1.0)) / AREA(roi) < 0.02;")
@@ -1972,16 +2004,147 @@ def config_params(cfg) -> int:
     return cfg.padded_vocab * d + d + cfg.num_layers * per_layer
 
 
-def producer_sql(cut: float) -> list:
-    """Scenario 1's ranking over the span's key columns (LIMIT 256) and a
-    CP filter over the same ROI whose cut is the masks' median attended
-    share, so that it splits them."""
+def producer_sql(lv: float, fv: float, cut: float) -> list:
+    """Scenario 1's ranking over the span's key columns (LIMIT 256) from
+    the lower value ``lv``, and a CP filter over the same ROI from ``fv``
+    whose ``cut`` splits the masks (``query_cuts``)."""
     return [("scenario1_topk",
              "SELECT mask_id FROM MasksDatabaseView ORDER BY "
-             "CP(mask, roi, (0.5, 1.0)) / AREA(roi) ASC LIMIT 256;"),
+             f"CP(mask, roi, ({lv!r}, 1.0)) / AREA(roi) ASC "
+             f"LIMIT {PRODUCER_LIMIT};"),
             ("attended_filter",
              "SELECT mask_id FROM MasksDatabaseView WHERE "
-             f"CP(mask, roi, (0.01, 1.0)) / AREA(roi) > {cut!r};")]
+             f"CP(mask, roi, ({fv!r}, 1.0)) / AREA(roi) > {cut!r};")]
+
+
+def roi_counts(span, lv) -> np.ndarray:
+    """Each mask's count of ROI pixels with ``lv <= m < 1``, on the host."""
+    return ((span >= lv) & (span < 1.0)).sum(axis=(1, 2))
+
+
+def query_cuts(masks) -> tuple:
+    """``producer_sql``'s thresholds, from the masks' own values over the
+    ROI, so that each query splits them whatever their range (whisper's
+    top out at 0.13): ``lv`` is the median ROI value in (0, 1), lowered
+    if need be until at most half the LIMIT of the masks have no pixel
+    from it; ``fv`` the values' first quartile; ``cut`` halfway between
+    the two adjacent attended shares at ``fv`` that part the masks
+    nearest their middle, so that no mask's share lies near it.  The
+    values are float32's, so that the kernels and the host compare alike."""
+    r0, c0, r1, c1 = PRODUCER_ROI
+    span = masks[:, r0:r1, c0:c1]
+    sample = span[:, ::7, ::7]
+    inner = sample[(sample > 0) & (sample < 1.0)]
+    top = np.where(span < 1.0, span, 0).max(axis=(1, 2))
+    lv = min(np.median(inner),
+             np.quantile(top, PRODUCER_LIMIT / (2 * len(masks))))
+    lv = float(np.float32(lv))
+    fv = float(np.float32(np.quantile(inner, 0.25)))
+    at_fv = np.sort(roi_counts(span, fv))
+    counts = np.unique(at_fv)
+    if len(counts) < 2:
+        fail(f"every mask has {counts} ROI pixels from {fv}: no cut splits "
+             f"them")
+    above = len(masks) - np.searchsorted(at_fv, counts[:-1], side="right")
+    j = int(np.argmin(np.abs(above - len(masks) / 2)))
+    cut = float((counts[j] + counts[j + 1]) / 2 / span[0].size)
+    return lv, fv, cut
+
+
+def check_split(results, masks, lv, fv, cut, kind) -> None:
+    """Each query splits the masks, by the host's own counts: the ranking
+    returns the ``PRODUCER_LIMIT`` masks of fewest ROI pixels from
+    ``lv``, with the host's scores, at least one of them non-zero (a
+    kernel that counted nothing would rank every mask 0); the filter
+    returns some but not all masks, those whose share from ``fv`` is over
+    ``cut``."""
+    r0, c0, r1, c1 = PRODUCER_ROI
+    span = masks[:, r0:r1, c0:c1]
+    n, area = len(masks), span[0].size
+    ids, scores = results[("scenario1_topk", "device")][0]
+    ids = np.asarray(ids)
+    counts = roi_counts(span, lv)
+    rest = np.setdiff1d(np.arange(n), ids)
+    if (len(ids) != PRODUCER_LIMIT or counts[ids].max() == 0 or
+            counts[ids].max() > counts[rest].min() or
+            not np.allclose(np.asarray(scores, np.float64),
+                            counts[ids] / area, rtol=1e-6, atol=0)):
+        fail(f"{kind} scenario1_topk does not split the masks: host counts "
+             f"{counts[ids].min()}..{counts[ids].max()} returned, "
+             f"{counts[rest].min()}.. left out")
+    got = np.sort(np.asarray(results[("attended_filter", "device")][0]))
+    want = np.flatnonzero(roi_counts(span, fv) > cut * area)
+    if not 0 < len(got) < n or not np.array_equal(got, want):
+        fail(f"{kind} attended_filter: {len(got)} of {n} masks, the host "
+             f"counts {len(want)}")
+    print(f"{kind} split check: the ranking from {lv!r} returns the "
+          f"{PRODUCER_LIMIT} masks of fewest ROI pixels ({counts[ids].min()}"
+          f"..{counts[ids].max()} of {area}; left out from "
+          f"{counts[rest].min()}); the filter from {fv!r} over {cut!r} "
+          f"returns {len(got)} of {n}; both as the host counts")
+
+
+def index_and_query(torch, dev, masks, n_first, kind, smi):
+    """Phase 10's index-and-query window over ``masks`` (host float32,
+    (n, 224, 224)): ``create_memory`` of the first ``n_first`` on the card,
+    ``append`` of the rest, then ``producer_sql``'s two queries (at
+    ``query_cuts``' thresholds) on the device and host backends and as
+    naive scans, all in a launch window of its own (``{kind}
+    launches``); device == host == naive scan == the host's own counts
+    (``check_split``); the window's largest
+    ``chi_cell_hist``, ``cp_count_multi`` and ``cp_count`` calls held
+    against their plain versions (``{kind} parity``).  Returns the store,
+    the results and the provided ROIs."""
+    from repro_torch.core import CHIConfig, MaskStore
+    from repro_torch.core import queries as tq
+    from repro_torch.core.store import MASK_META_DTYPE
+    from repro_torch.kernels import ops
+
+    n = len(masks)
+    meta = make_meta(n, MASK_META_DTYPE)
+    meta["image_id"] = np.arange(n)
+    meta["mask_type"] = 1
+    chi_cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
+    provided = np.tile(np.asarray(PRODUCER_ROI, np.int32), (n, 1))
+    cuts = query_cuts(masks)
+    sqls = producer_sql(*cuts)
+    largest: dict = {}
+    undo = record_largest(ops, PRODUCER_KERNELS, largest)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    store, _, _ = ingest(torch, MaskStore, chi_cfg, dev, meta,
+                         (masks[:n_first], masks[n_first:]), ops,
+                         packed=False, label=f"{kind} ingest")
+    results = run_queries(torch, tq, ops, store, sqls, provided, f"{kind} ")
+    naive = naive_scans(torch, tq, ops, store, sqls, provided)
+    undo()
+    close_window(ops, "index+query", PRODUCER_KERNELS, t0, kind=kind)
+    check_answers(results, naive, sqls, f"{kind} ")
+    check_split(results, masks, *cuts, kind)
+    for name in PRODUCER_KERNELS:
+        if name not in largest:
+            fail(f"{kind}: {name} was never called")
+        mesh_parity(torch, ops, name, largest[name][1], f"{kind} window",
+                    smi, kind=kind)
+    return store, results, provided
+
+
+def stack_loss(m, b, emb):
+    """Input saliency's loss: a decoder's blocks run from the injected
+    embeddings ``emb``, each recomputed in the backward pass, then the
+    tied head's cross-entropy against ``b["labels"]``."""
+    import torch
+    from repro_torch.models.layers import (cross_entropy, logits_from_tied,
+                                           rms_norm)
+    from torch.utils.checkpoint import checkpoint
+    pos = torch.arange(emb.shape[1], device=emb.device).expand(emb.shape[:2])
+    x = emb
+    for blk in m.blocks:
+        x = checkpoint(blk, x, pos, use_reentrant=False)
+    h = rms_norm(x, m.final_norm, m.cfg.norm_eps)
+    labels = torch.as_tensor(b["labels"], device=emb.device)
+    return cross_entropy(logits_from_tied(m.embedding, h, m.cfg.vocab_size),
+                         labels)
 
 
 def producer_cut_checks(torch, cfg, dev, smi) -> None:
@@ -2042,18 +2205,12 @@ def producer_phase(torch, dev, smi) -> None:
     are augmented."""
     import gc
     from repro_torch.configs import load_arch
-    from repro_torch.core import (CHIConfig, MaskStore, augment, build_chi_np,
-                                  saliency)
-    from repro_torch.core import queries as tq
-    from repro_torch.core.store import MASK_META_DTYPE
+    from repro_torch.core import CHIConfig, augment, build_chi_np, saliency
     from repro_torch.data.pipeline import (AugmentedData, PrefetchIterator,
                                            SyntheticLMData)
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import build_model
-    from repro_torch.models.layers import (count_params, cross_entropy,
-                                           logits_from_tied, rms_norm)
-    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models.layers import count_params
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2133,23 +2290,10 @@ def producer_phase(torch, dev, smi) -> None:
     batch = {"tokens": data["tokens"][:PRODUCER_BATCH],
              "labels": data["labels"][:PRODUCER_BATCH]}
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    labels = torch.as_tensor(batch["labels"], device=dev)
-
-    def loss_fn(m, b, emb):
-        """The stack run from injected embeddings, each block recomputed
-        in the backward pass, then the tied head's cross-entropy."""
-        pos = torch.arange(emb.shape[1], device=emb.device).expand(
-            emb.shape[:2])
-        x = emb
-        for blk in m.blocks:
-            x = checkpoint(blk, x, pos, use_reentrant=False)
-        h = rms_norm(x, m.final_norm, m.cfg.norm_eps)
-        return cross_entropy(logits_from_tied(m.embedding, h,
-                                              m.cfg.vocab_size), labels)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scores = saliency.input_saliency(loss_fn, model, {
+    scores = saliency.input_saliency(stack_loss, model, {
         **batch, "embeddings": model.embedding[tokens] * torch.tensor(
             cfg.embed_scale, dtype=model.dtype)})
     grid = saliency.resize_mask(saliency.tokens_to_grid(
@@ -2173,46 +2317,19 @@ def producer_phase(torch, dev, smi) -> None:
     torch.cuda.empty_cache()
 
     # -- 10d-e. index, then query: one launch window -------------------------
-    meta = make_meta(N_PRODUCED, MASK_META_DTYPE)
-    meta["image_id"] = np.arange(N_PRODUCED)
-    meta["mask_type"] = 1
-    chi_cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
-    provided = np.tile(np.asarray(PRODUCER_ROI, np.int32), (N_PRODUCED, 1))
-    r0, c0, r1, c1 = PRODUCER_ROI
-    span = masks[:, r0:r1, c0:c1]
-    share = ((span >= 0.01) & (span < 1.0)).mean(axis=(1, 2))
-    sqls = producer_sql(float(np.median(share)))
-    largest: dict = {}
-    undo = record_largest(ops, PRODUCER_KERNELS, largest)
-    t0 = time.perf_counter()
-    ops.reset_launches()
-    store, _, _ = ingest(torch, MaskStore, chi_cfg, dev, meta,
-                         (masks[:N_PRODUCED_FIRST],
-                          masks[N_PRODUCED_FIRST:]), ops, packed=False,
-                         label="producer ingest")
-    results = run_queries(torch, tq, ops, store, sqls, provided, "producer ")
-    naive = naive_scans(torch, tq, ops, store, sqls, provided)
-    undo()
-    close_window(ops, "index+query", PRODUCER_KERNELS, t0, kind="producer")
+    store, results, provided = index_and_query(torch, dev, masks,
+                                               N_PRODUCED_FIRST, "producer",
+                                               smi)
     sample = slice(0, 64)
+    chi_cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
     want = build_chi_np(masks[N_PRODUCED_FIRST:][sample], chi_cfg)
     if not np.array_equal(store.chi_chunks[1][sample], want):
         fail("producer: the appended CHI chunk differs from build_chi_np")
     print("producer ingest check: the appended CHI chunk equals "
           "build_chi_np on a 64-mask sample")
-    check_answers(results, naive, sqls, "producer ")
-    for qname, _ in sqls:
-        res = results[(qname, "device")][0]
-        n_out = len(res[0]) if isinstance(res, tuple) else len(res)
-        if not 0 < n_out < N_PRODUCED:
-            fail(f"producer {qname}: {n_out} of {N_PRODUCED} masks")
-    for name in PRODUCER_KERNELS:
-        if name not in largest:
-            fail(f"producer: {name} was never called")
-        mesh_parity(torch, ops, name, largest[name][1], "producer window",
-                    smi, kind="producer")
 
     # -- 10f. augment the top-k's masks and token rows -----------------------
+    r0, c0, r1, c1 = PRODUCER_ROI
     ids = np.asarray(results[("scenario1_topk", "device")][0][0])
     imgs = torch.as_tensor(masks[ids], device=dev)
     out = augment.randomize_outside_roi(torch.Generator(dev).manual_seed(0),
@@ -2425,11 +2542,8 @@ def training_phase(torch, dev, smi) -> None:
     import gc
     import importlib.util
     from repro_torch.configs import load_arch
-    from repro_torch.core import CHIConfig, MaskStore, augment, saliency
-    from repro_torch.core import queries as tq
-    from repro_torch.core.store import MASK_META_DTYPE
+    from repro_torch.core import augment, saliency
     from repro_torch.data.pipeline import AugmentedData, SyntheticLMData
-    from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
     from repro_torch.models import build_model
     from repro_torch.train.train_loop import make_train_step
@@ -2493,32 +2607,8 @@ def training_phase(torch, dev, smi) -> None:
     print(f"loop harvest: {LOOP_MASKS} masks {H}x{W} from the trained model "
           f"in {harvest_s:.3f} s ({LOOP_MASKS / harvest_s:.1f} masks/s)")
 
-    meta = make_meta(LOOP_MASKS, MASK_META_DTYPE)
-    meta["image_id"] = np.arange(LOOP_MASKS)
-    meta["mask_type"] = 1
-    chi_cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
-    provided = np.tile(np.asarray(PRODUCER_ROI, np.int32), (LOOP_MASKS, 1))
-    r0, c0, r1, c1 = PRODUCER_ROI
-    span = masks[:, r0:r1, c0:c1]
-    share = ((span >= 0.01) & (span < 1.0)).mean(axis=(1, 2))
-    sqls = producer_sql(float(np.median(share)))
-    largest: dict = {}
-    undo = record_largest(ops, PRODUCER_KERNELS, largest)
-    t0 = time.perf_counter()
-    ops.reset_launches()
-    store, _, _ = ingest(torch, MaskStore, chi_cfg, dev, meta,
-                         (masks[:LOOP_FIRST], masks[LOOP_FIRST:]), ops,
-                         packed=False, label="loop ingest")
-    results = run_queries(torch, tq, ops, store, sqls, provided, "loop ")
-    naive = naive_scans(torch, tq, ops, store, sqls, provided)
-    undo()
-    close_window(ops, "index+query", PRODUCER_KERNELS, t0, kind="loop")
-    check_answers(results, naive, sqls, "loop ")
-    for name in PRODUCER_KERNELS:
-        if name not in largest:
-            fail(f"loop: {name} was never called")
-        mesh_parity(torch, ops, name, largest[name][1], "loop window", smi,
-                    kind="loop")
+    store, results, _ = index_and_query(torch, dev, masks, LOOP_FIRST,
+                                        "loop", smi)
 
     ids = np.asarray(results[("scenario1_topk", "device")][0][0])
     rows = store.positions_of(ids)
@@ -2587,6 +2677,266 @@ def training_phase(torch, dev, smi) -> None:
         fail("scenario1 example: its lines are missing")
     print(f"scenario1 example: {time.perf_counter() - t0:.1f} s on {dev}")
     print(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- 12. the other producers: recurrent and encoder-decoder families ---------
+
+def decode_bytes(model, cache, pos: int) -> int:
+    """The bytes a greedy decode step at position ``pos`` must move: the
+    parameters it reads (a decoder LM's all; an encoder-decoder's decoder,
+    embedding and final norm, not its encoder), every cache tensor read
+    once — of a self-attention ``k``/``v`` only the ``pos + 1`` slots the
+    step attends to (the port's masked read touches the empty ones as
+    well) —, and the recurrent states (``h``, ``state``) written once
+    more."""
+    if model.cfg.is_encoder_decoder:
+        params = [p for n, p in model.named_parameters()
+                  if not n.startswith(("enc.", "enc_norm"))]
+    else:
+        params = list(model.parameters())
+    n = sum(p.numel() * p.element_size() for p in params)
+    for c in cache:
+        for k, t in c.items():
+            size = t.numel() * t.element_size()
+            if k in ("k", "v"):
+                size = size // t.shape[1] * min(pos + 1, t.shape[1])
+            n += size * (2 if k in ("h", "state") else 1)
+    return n
+
+
+def other_prompt(serve, cfg):
+    """Phase 12's serve prompt: 8 x 128 tokens, or for whisper 8 x 1,500
+    frames and a 16-token prompt."""
+    if cfg.is_encoder_decoder:
+        return serve.prompt_batch(cfg, SERVE_BATCH, WHISPER_PROMPT,
+                                  enc_len=WHISPER_FRAMES)
+    return serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
+
+
+def other_cut_checks(torch, cfg, dev, smi) -> None:
+    """``producer_cut_checks``' pattern for the other families: a float32
+    cut at full width (recurrentgemma 3 layers, one whole group, so that
+    it holds its local attention layer; mamba2 2 layers; whisper 2 + 2),
+    random weights from generator seed 1 with ``wq``/``wk`` at 1/8 of the
+    init scale: prefill + 8 decode steps against teacher forcing (2e-2,
+    as the reference's test), then the card against the CPU with the same
+    weights, TF32 off: logits (1e-4 of their scale) and the family's mask
+    source (attention maps and cross maps 1e-5, input saliency 1e-4)."""
+    import dataclasses
+    from repro_torch.core import saliency
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import logits_from_tied
+    if cfg.is_encoder_decoder:
+        cut = dataclasses.replace(cfg, num_layers=2, enc_layers=2,
+                                  dec_layers=2, dtype="float32")
+    else:
+        cut = dataclasses.replace(cfg, num_layers=3 if "rglru" in
+                                  cfg.layer_pattern else 2, dtype="float32")
+    card = build_model(cut, dev).init(torch.Generator(dev).manual_seed(1))
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            if name.endswith(("wq", "wk")):
+                p.mul_(0.125)
+    batch = serve.prompt_batch(cut, 2, 24, seed=2)
+    # next-token labels: with its own tokens as labels the tied head of a
+    # shallow cut predicts each with probability 1.0 and the gradient is 0
+    labels = np.roll(batch["tokens"], -1, axis=1)
+
+    def logits(m, b):
+        with torch.no_grad():
+            if cut.is_encoder_decoder:
+                h = m._decoder(b["tokens"], m.encode(b["audio_feats"]))
+                return logits_from_tied(m.embedding, h, cut.vocab_size)
+            return m.logits(b)[0]
+
+    def source(m, b):
+        if cut.is_encoder_decoder:
+            return "cross maps", m.cross_attention_maps(b), 1e-5
+        maps = m.attention_maps(b)
+        if maps is not None:
+            return "attention maps", maps, 1e-5
+        tokens = torch.as_tensor(b["tokens"], device=m.device).long()
+        return "input saliency", saliency.input_saliency(
+            stack_loss, m, {"labels": labels,
+                            "embeddings": m.embedding[tokens].detach()}), \
+            1e-4
+
+    full = logits(card, batch)
+    prompt = {k: (v[:, :16] if k == "tokens" else v) for k, v in
+              batch.items()}
+    if cut.is_encoder_decoder:
+        cache = card.init_cache(2, enc_len=batch["audio_feats"].shape[1])
+    else:
+        cache = card.init_cache(2, 32)
+    lp, cache = card.prefill(prompt, cache)
+    steps = [(lp[:, 0], full[:, 15])]
+    for pos in range(16, 24):
+        ld, cache = card.decode_step(cache, batch["tokens"][:, pos:pos + 1],
+                                     pos)
+        steps.append((ld[:, 0], full[:, pos]))
+    err = max(float((got - want).abs().max()) for got, want in steps)
+    if not all(bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
+               for got, want in steps):
+        fail(f"{cfg.name}: decode leaves teacher forcing (max err {err})")
+    cpu = build_model(cut, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    v = cut.vocab_size                  # the pad columns are −2e38 on both
+    want = logits(cpu, batch)[..., :v]
+    scale = max(1.0, float(want.abs().max()))
+    e_logits = float((full[..., :v].cpu() - want).abs().max())
+    what, got_map, tol = source(card, batch)
+    e_map = float((got_map.cpu() - source(cpu, batch)[1]).abs().max())
+    if e_logits > 1e-4 * scale or e_map > tol:
+        fail(f"{cfg.name}: the card's float32 cut differs from the CPU "
+             f"(logits {e_logits} at scale {scale}, {what} {e_map})")
+    if not float(got_map.max()) > 0:
+        fail(f"{cfg.name}: the cut's {what} is all zero")
+    print(f"other check {cfg.name}: {cut.num_layers}-layer float32 cut at "
+          f"full width: prefill + 8 decode steps equal teacher forcing (max "
+          f"err {err:.3e}, rtol = atol = 2e-2); card vs CPU max err logits "
+          f"{e_logits:.3e} (scale {scale:.1f}, atol 1e-4 of it), {what} "
+          f"{e_map:.3e} (atol {tol:g}), TF32 off ({smi})")
+
+
+def other_harvest(torch, model, cfg, arch, dev, n=None):
+    """``n`` (default ``OTHER_MASKS[arch]``) of the family's masks as its
+    source makes them, in batches →
+    (host float32 (n, 224, 224), seconds, what): recurrentgemma's last
+    local layer (``attention_maps``, window 2048 > 224) head-averaged;
+    mamba2's ``input_saliency`` on a 16 x 14 grid resized; whisper's
+    ``cross_attention_maps`` (448 tokens x 1,500 frames) head-averaged
+    and resized.  Batches come through ``PrefetchIterator``."""
+    from repro_torch.core import saliency
+    from repro_torch.data.pipeline import PrefetchIterator, SyntheticLMData
+    n, bs = n or OTHER_MASKS[arch], OTHER_BATCH[arch]
+    if cfg.is_encoder_decoder:
+        data = SyntheticLMData(cfg, WHISPER_FRAMES, bs, seed=0)
+        source = (data.batch_at(i) for i in range(n // bs))
+
+        def masks_of(b):
+            return saliency.resize_mask(saliency.last_layer_attention(
+                model.cross_attention_maps(b)), H, W)
+        what = (f"cross_attention_maps (B, {cfg.num_heads}, "
+                f"{cfg.max_decode_len}, {WHISPER_FRAMES}) -> head mean + "
+                f"normalize01 -> resize_mask {H}x{W}")
+    else:
+        data = SyntheticLMData(cfg, H, n, seed=0).batch_at(0)
+        source = ({k: v[i:i + bs] for k, v in data.items()}
+                  for i in range(0, n, bs))
+        if arch == "mamba2_13b":
+            def masks_of(b):
+                tokens = torch.as_tensor(b["tokens"], device=dev).long()
+                scores = saliency.input_saliency(stack_loss, model, {
+                    **b, "embeddings": model.embedding[tokens].detach()})
+                return saliency.resize_mask(saliency.tokens_to_grid(
+                    scores.float(), 16, 14), H, W)
+            what = (f"input_saliency -> tokens_to_grid 16x14 -> resize_mask "
+                    f"{H}x{W}")
+        else:
+            def masks_of(b):
+                return saliency.last_layer_attention(model.attention_maps(b))
+            last = max(i for i, k in enumerate(model.kinds)
+                       if k in ("global", "local"))
+            what = (f"attention_maps of layer {last} ({model.kinds[last]}, "
+                    f"window {cfg.local_window}) -> last_layer_attention")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = torch.cat([masks_of(b) for b in PrefetchIterator(source, depth=2)])
+    torch.cuda.synchronize()
+    return out.cpu().numpy(), time.perf_counter() - t0, what
+
+
+def other_phase(torch, dev, smi) -> None:
+    """Phase 12: recurrentgemma-2b, mamba2-1.3b and whisper-large-v3 at
+    full width and depth (bf16, random weights from generator seed 0), one
+    after another: build, serve (prefill and 32 greedy decode steps), the
+    float32 cut's checks, harvest masks the way the family's source makes
+    them, then phase 10's index-and-query window over them."""
+    import gc
+    from repro_torch.configs import load_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import count_params
+
+    t_phase = time.perf_counter()
+    for arch in OTHER_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_arch = time.perf_counter()
+        cfg = load_arch(arch)
+        t0 = time.perf_counter()
+        model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = count_params(model)
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        if n_params != OTHER_PARAMS[arch]:
+            fail(f"{cfg.name}: {n_params:,} parameters, the reference's "
+                 f"init has {OTHER_PARAMS[arch]:,}")
+        layers = (f"{cfg.enc_layers} + {cfg.dec_layers} layers"
+                  if cfg.is_encoder_decoder else
+                  f"{cfg.num_layers} layers {'/'.join(cfg.layer_pattern)}")
+        print(f"other model {cfg.name}: {layers}, d_model {cfg.d_model}, "
+              f"{cfg.dtype}: {n_params:,} parameters, {n_bytes:,} B; random "
+              f"init {time.perf_counter() - t0:.1f} s ({smi})")
+
+        # -- serve: prefill, then greedy decode ------------------------------
+        prompt = other_prompt(serve, cfg)
+        serve.greedy_generate(model, prompt, 2)              # warm-up
+        out = serve.greedy_generate(model, prompt, SERVE_STEPS + 1)
+        if not out["finite"]:
+            fail(f"{cfg.name} serve: non-finite logits")
+        b, p_len = prompt["tokens"].shape
+        cache = (model.init_cache(b, enc_len=WHISPER_FRAMES)
+                 if cfg.is_encoder_decoder else
+                 model.init_cache(b, p_len + SERVE_STEPS + 1))
+        bound_ms = float(np.mean([decode_bytes(model, cache, pos)
+                                  for pos in range(p_len,
+                                                   p_len + SERVE_STEPS)])
+                         ) / PEAK_BYTES_S * 1e3
+        del cache
+        step_ms = out["decode_s"] / SERVE_STEPS * 1e3
+        frames = (f"{WHISPER_FRAMES} frames + " if cfg.is_encoder_decoder
+                  else "")
+        print(f"other serve {cfg.name}: prefill {b}x({frames}{p_len} tokens) "
+              f"{out['prefill_s'] * 1e3:.3f} ms; {SERVE_STEPS} greedy decode "
+              f"steps x{b}: {step_ms:.3f} ms a step, "
+              f"{SERVE_STEPS * b / out['decode_s']:.1f} tok/s (bound "
+              f"{bound_ms:.3f} ms a step: the weights it reads, the caches "
+              f"up to the step's position and the states at 3.35 TB/s); "
+              f"logits finite; sample "
+              f"{out['tokens'][0, :8].tolist()} ({smi})")
+        other_cut_checks(torch, cfg, dev, smi)
+
+        # -- harvest ---------------------------------------------------------
+        if arch == "mamba2_13b" and model.attention_maps(
+                {"tokens": prompt["tokens"][:1, :8]}) is not None:
+            fail("mamba2: attention_maps of an attention-free stack is not "
+                 "None")
+        model.requires_grad_(False)
+        masks, harvest_s, what = other_harvest(torch, model, cfg, arch, dev)
+        n = OTHER_MASKS[arch]
+        if masks.shape != (n, H, W) or masks.dtype != np.float32:
+            fail(f"{cfg.name}: masks {masks.shape} {masks.dtype}")
+        # input saliency in bf16 tops out at 1.0 (normalize01's fault)
+        top_ok = masks.max() <= 1 if arch == "mamba2_13b" else masks.max() < 1
+        if not (np.isfinite(masks).all() and masks.min() >= 0 and top_ok):
+            fail(f"{cfg.name}: masks are not finite values in [0, 1)")
+        print(f"other harvest {cfg.name}: {n} masks {H}x{W} float32 via "
+              f"{what}, {OTHER_BATCH[arch]} a batch, in {harvest_s:.3f} s "
+              f"({n / harvest_s:.1f} masks/s); values in [{masks.min()}, "
+              f"{masks.max()}]; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
+        del model, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- index, then query: one launch window ----------------------------
+        index_and_query(torch, dev, masks, n // 2, f"other {cfg.name}", smi)
+        print(f"other {cfg.name}: {time.perf_counter() - t_arch:.1f} s")
+    print(f"other producers phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2744,6 +3094,10 @@ def main() -> int:
 
     # -- 11. training: the trainer at full width, then Scenario 1's loop ----
     training_phase(torch, dev, smi)
+
+    # -- 12. the other producers: recurrentgemma, mamba2 and whisper at full
+    # width serve, harvest masks, index and query them ----------------------
+    other_phase(torch, dev, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

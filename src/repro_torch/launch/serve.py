@@ -6,7 +6,11 @@
 The port of the JAX package's ``launch/serve.py``: the same prompt (numpy
 seed 0), random weights from ``torch.Generator`` seed 0, one prefill and
 ``gen − 1`` greedy decode steps, in eager PyTorch on ``--device``.  Full
-width unless ``--smoke``.
+width unless ``--smoke``.  An encoder-decoder (whisper) gets 64 frames of
+``audio_feats`` before its token prompt, as the reference's CLI gives it;
+its self-KV holds ``cfg.max_decode_len`` (448) tokens, so keep prompt +
+gen within that (past it, decode reuses the last slot and position, as
+the reference does).
 """
 
 from __future__ import annotations
@@ -27,12 +31,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
-    """The reference CLI's prompt: uniform token ids (+ patches for a VLM)
-    from ``numpy.random.default_rng(seed)``."""
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 0,
+                 enc_len: int = 64) -> dict:
+    """The reference CLI's prompt: uniform token ids (+ patches for a VLM;
+    first ``enc_len`` frames of normal ``audio_feats`` for an
+    encoder-decoder) from ``numpy.random.default_rng(seed)``."""
     rng = np.random.default_rng(seed)
-    out = {"tokens": rng.integers(0, cfg.vocab_size,
-                                  (batch, prompt_len)).astype(np.int32)}
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["audio_feats"] = rng.standard_normal(
+            (batch, enc_len, cfg.d_model)).astype(np.float32)
+    out["tokens"] = rng.integers(0, cfg.vocab_size,
+                                 (batch, prompt_len)).astype(np.int32)
     if cfg.num_patches:
         out["patches"] = rng.standard_normal(
             (batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
@@ -48,7 +58,10 @@ def greedy_generate(model, batch: dict, gen: int) -> dict:
     every step was finite)."""
     cfg, dev = model.cfg, model.device
     b, prompt_len = np.shape(batch["tokens"])
-    cache = model.init_cache(b, prompt_len + gen)
+    if cfg.is_encoder_decoder:
+        cache = model.init_cache(b, enc_len=np.shape(batch["audio_feats"])[1])
+    else:
+        cache = model.init_cache(b, prompt_len + gen)
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = model.prefill(batch, cache)

@@ -109,6 +109,14 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return s.float() / sqrt_f32(q.shape[-1])
 
 
+def map_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """A mask map's (B,H,S,T) f32 scores from (B,S,H,D) × (B,T,H,D): the
+    product *and* the ÷ sqrt(D) in the compute dtype, then f32 — the
+    reference's maps divide by a weakly typed scalar before their cast."""
+    s = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1))
+    return (s / torch.tensor(sqrt_f32(q.shape[-1]), dtype=s.dtype)).float()
+
+
 def _pv(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B,H,S,T) × (B,T,H,D) → (B,S,H,D)."""
     return torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2)
@@ -251,3 +259,28 @@ def causal_mask(s: int, t: int, offset: int, window: int = 0,
     if window > 0:
         m &= kj > (qi - window)
     return m[None, None]
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder → encoder states)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(generator, cfg, dtype, device) -> Attention:
+    """``wq``/``wk``/``wv``/``wo`` as a self-attention layer's (the one
+    family with cross-attention, whisper, has no qk-norm)."""
+    p = Attention(cfg, dtype, device)
+    p.init(generator)
+    return p
+
+
+def cross_kv(p: Attention, enc_out):
+    """The encoder states' keys and values, ``{"k", "v"}`` (B,T,Hkv,hd)."""
+    return {"k": _proj(enc_out, p.wk), "v": _proj(enc_out, p.wv)}
+
+
+def cross_attention(p: Attention, cfg, x, kv):
+    """Every query sees every encoder frame (no mask, no positions)."""
+    out = _sdpa(_proj(x, p.wq), kv["k"], kv["v"], cfg, causal=False,
+                window=0)
+    return _out(out, p.wo)

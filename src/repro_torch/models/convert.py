@@ -1,12 +1,15 @@
 """Carry the JAX package's parameters into a port model.
 
-The reference keeps its parameters as a nested dict: ``embedding``,
-``final_norm``, ``groups`` (each leaf stacked over the repeated layer
-groups on a leading axis) and ``tail`` (the layers past the last whole
-group).  The caller hands that tree over as numpy arrays — e.g.
+The reference keeps its parameters as a nested dict.  A decoder LM's
+holds ``embedding``, ``final_norm``, ``groups`` (each leaf stacked over
+the repeated layer groups on a leading axis) and ``tail`` (the layers
+past the last whole group, e.g. recurrentgemma's two RG-LRU layers); an
+encoder-decoder's holds ``embedding``, ``enc`` and ``dec`` (each leaf
+stacked over that stack's layers) and ``enc_norm``/``dec_norm``.  The
+caller hands that tree over as numpy arrays — e.g.
 ``jax.tree.map(np.asarray, params)`` — so this module needs neither JAX
 nor the reference; it slices the group axis per layer and loads each
-leaf into the matching parameter of :class:`DecoderLM`, on the model's
+leaf into the matching parameter of the model, on the model's
 device and in its dtype.  The optimizer's moments and master copies have
 the params' tree structure and travel the same way
 (:func:`load_reference_opt_state`); :func:`reference_tree` is the
@@ -43,10 +46,30 @@ def _flatten(tree, prefix: str, out: dict) -> dict:
     return out
 
 
+# an encoder-decoder's stacks: tree key → the model's ModuleList
+STACKS = ("enc", "dec")
+
+
+def _stacked_state(model, tree) -> dict:
+    """An encoder-decoder's tree, each stack's layer axis sliced away."""
+    flat = {k: v for k, v in tree.items() if k not in STACKS}
+    for stack in STACKS:
+        n = len(getattr(model, stack))
+        for k, v in _flatten(tree[stack], "", {}).items():
+            if v.shape[0] != n:
+                raise ValueError(f"{stack}.{k}: {v.shape[0]} layers; "
+                                 f"{model.cfg.name} has {n}")
+            flat.update({f"{stack}.{i}.{k}": v[i] for i in range(n)})
+    return flat
+
+
 def reference_state(model, tree) -> dict:
     """The reference param ``tree`` as a flat ``{state_dict key: array}``
-    for ``model`` (one entry per layer, the group axis sliced away)."""
+    for ``model`` (one entry per layer, the group or stack axis sliced
+    away)."""
     cfg = model.cfg
+    if cfg.is_encoder_decoder:
+        return _stacked_state(model, tree)
     glen = len(cfg.layer_pattern)
     n_grouped = cfg.num_groups * glen
     groups = {leaf.shape[0] for leaf in
@@ -110,23 +133,25 @@ def reference_tree(model, values) -> dict:
     if len(values) != len(names):
         raise ValueError(f"{len(values)} values for {len(names)} parameters")
     tree: dict = {}
-    stacks: dict = {}
+    stacks: dict = {}               # (path in the tree) → per-layer values
     for name, v in zip(names, values):
         head, _, rest = name.partition(".")
-        if head != "blocks":
+        if head in STACKS and cfg.is_encoder_decoder:
+            sub = rest.partition(".")[2]           # past the layer index
+            stacks.setdefault((head, *sub.split(".")), []).append(v.detach())
+        elif head != "blocks":
             tree[name] = v.detach()
-            continue
-        layer, _, sub = rest.partition(".")
-        layer = int(layer)
-        if layer < n_grouped:        # layers come in order: group g at g
-            stacks.setdefault((f"block{layer % glen}", sub), []).append(
-                v.detach())
         else:
-            _put(tree, ["tail", f"block{layer - n_grouped}",
-                        *sub.split(".")], v.detach())
-    for (block, sub), per_group in stacks.items():
-        _put(tree, ["groups", block, *sub.split(".")],
-             torch.stack(per_group))
+            layer, _, sub = rest.partition(".")
+            layer = int(layer)
+            if layer < n_grouped:    # layers come in order: group g at g
+                stacks.setdefault(("groups", f"block{layer % glen}",
+                                   *sub.split(".")), []).append(v.detach())
+            else:
+                _put(tree, ["tail", f"block{layer - n_grouped}",
+                            *sub.split(".")], v.detach())
+    for path, per_layer in stacks.items():
+        _put(tree, path, torch.stack(per_layer))
     return tree
 
 

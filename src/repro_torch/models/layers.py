@@ -22,8 +22,19 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -2.0e38        # masked logit / score value, as in the reference
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def remat_call(cfg, blk, *args):
+    """``blk(*args)``; with ``cfg.remat`` and autograd recording, its
+    activations are recomputed in the backward pass (the reference's
+    ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(blk, *args, use_reentrant=False)
+    return blk(*args)
 
 
 def param(generator: torch.Generator, shape, *, dtype=torch.float32,
@@ -50,6 +61,30 @@ def param(generator: torch.Generator, shape, *, dtype=torch.float32,
 
 def count_params(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+class Params(torch.nn.Module):
+    """A mixer's parameters under the reference's names, read as
+    ``p["name"]`` like the reference's dict: ``spec`` maps each name to
+    ``(shape, dtype, scale)``, ``scale`` as :func:`param` takes it.
+    Construction allocates them uninitialised; :meth:`init` draws them."""
+
+    def __init__(self, spec: dict, device):
+        super().__init__()
+        self.scales = {name: scale for name, (_, _, scale) in spec.items()}
+        for name, (shape, dtype, _) in spec.items():
+            self.register_parameter(name, torch.nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device)))
+
+    def __getitem__(self, name: str) -> torch.nn.Parameter:
+        return getattr(self, name)
+
+    def init(self, generator) -> None:
+        for name, scale in self.scales.items():
+            w = getattr(self, name)
+            setattr(self, name, param(generator, tuple(w.shape),
+                                      dtype=w.dtype, device=w.device,
+                                      scale=scale))
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +140,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``softplus``: ``logaddexp(x, 0)`` (``F.softplus`` returns x
+    itself above its threshold of 20, which differs)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 # ---------------------------------------------------------------------------

@@ -2,15 +2,16 @@
 
 from __future__ import annotations
 
+from .encdec import EncDecLM
 from .transformer import DecoderLM
 
 
-def build_model(cfg, device="cuda") -> DecoderLM:
+def build_model(cfg, device="cuda") -> DecoderLM | EncDecLM:
     """The port's model for ``cfg`` on ``device``, parameters allocated
     but not initialised (``.init(generator)`` or the converter fill
-    them).  Raises ``NotImplementedError`` for a family the port lacks."""
+    them): ``EncDecLM`` for an encoder-decoder config, else
+    ``DecoderLM``, which raises ``NotImplementedError`` for a family the
+    port lacks."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family} family) is an encoder-decoder: "
-            f"models/encdec.py is not ported to PyTorch yet")
+        return EncDecLM(cfg, device)
     return DecoderLM(cfg, device)

@@ -1,26 +1,30 @@
-"""Decoder LM: the dense GQA stacks of the zoo on PyTorch.
+"""Decoder LM: the dense, hybrid and SSM stacks of the zoo on PyTorch.
 
 The port of the JAX package's ``models/transformer.py`` for stacks of
-``"global"``/``"local"`` GQA blocks with a SwiGLU FFN: granite, codeqwen,
-qwen3, gemma3 and internvl2 (patch embeddings prepended).  The
-reference's stacked, scanned layer groups become an ``nn.ModuleList`` of
+``"global"``/``"local"`` GQA blocks with a SwiGLU FFN (granite, codeqwen,
+qwen3, gemma3, internvl2 with patch embeddings prepended), ``"rglru"``
+recurrent blocks with the same FFN (recurrentgemma's hybrid) and
+``"ssm"`` Mamba-2 blocks with no FFN (mamba2).  The reference's stacked,
+scanned layer groups and unrolled tail become an ``nn.ModuleList`` of
 one block per layer, in the order of ``cfg.pattern_layers``.
 
-Families whose mixers are not ported yet — MoE FFNs, MLA attention,
-RG-LRU and SSM blocks, the MTP head — raise ``NotImplementedError``
-naming the family; nothing falls back to another block.
+Families whose modules are not ported yet — MoE FFNs, MLA attention, the
+MTP head — raise ``NotImplementedError`` naming the family; nothing falls
+back to another block.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
-from .layers import (cross_entropy, embed, init_rms, logits_from_tied,
-                     param, rms_norm, sinusoidal_positions, swiglu)
+from . import rglru as rglru_lib
+from . import ssm as ssm_lib
+from .layers import (DTYPES, Params, cross_entropy, embed, init_rms,
+                     logits_from_tied, param, remat_call, rms_norm,
+                     sinusoidal_positions, swiglu)
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+ATTENTION = ("global", "local")
 
 
 def check_supported(cfg) -> None:
@@ -30,10 +34,6 @@ def check_supported(cfg) -> None:
         missing.append("MoE FFN (models/moe.py)")
     if cfg.attention == "mla":
         missing.append("MLA attention (models/mla.py)")
-    for kind, module in (("rglru", "models/rglru.py"),
-                         ("ssm", "models/ssm.py")):
-        if kind in cfg.pattern_layers:
-            missing.append(f"{kind} blocks ({module})")
     if cfg.mtp_depth:
         missing.append("the multi-token-prediction head")
     if missing:
@@ -43,55 +43,86 @@ def check_supported(cfg) -> None:
 
 
 class Block(torch.nn.Module):
-    """One pre-norm GQA block: ``ln1`` → attention (``mixer``) → residual,
-    ``ln2`` → SwiGLU (``ffn``) → residual.  Parameter names are the
-    reference's, so its per-layer param tree maps onto ``state_dict``."""
+    """One pre-norm block: ``ln1`` → mixer → residual, then (all kinds but
+    ``"ssm"``) ``ln2`` → SwiGLU (``ffn``) → residual.  The mixer is GQA
+    attention for ``"global"``/``"local"``, RG-LRU for ``"rglru"`` and
+    Mamba-2 for ``"ssm"``.  Parameter names are the reference's, so its
+    per-layer param tree maps onto ``state_dict``."""
 
     def __init__(self, cfg, kind: str, dtype, device):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         self.ln1 = init_rms(cfg.d_model, device)
-        self.mixer = attn.Attention(cfg, dtype, device)
-        self.ln2 = init_rms(cfg.d_model, device)
-        empty = dict(dtype=dtype, device=device)
-        d, f = cfg.d_model, cfg.d_ff
-        self.ffn = torch.nn.ParameterDict({
-            "gate": torch.empty((d, f), **empty),
-            "up": torch.empty((d, f), **empty),
-            "down": torch.empty((f, d), **empty)})
+        if kind in ATTENTION:
+            self.mixer = attn.Attention(cfg, dtype, device)
+        elif kind == "rglru":
+            self.mixer = Params(rglru_lib.rglru_spec(cfg, dtype), device)
+        elif kind == "ssm":
+            self.mixer = Params(ssm_lib.ssm_spec(cfg, dtype), device)
+        else:
+            raise ValueError(kind)
+        if kind != "ssm":
+            self.ln2 = init_rms(cfg.d_model, device)
+            d, f = cfg.d_model, cfg.d_ff
+            self.ffn = Params({"gate": ((d, f), dtype, "fan_in"),
+                               "up": ((d, f), dtype, "fan_in"),
+                               "down": ((f, d), dtype, "fan_in")}, device)
 
     def init(self, generator) -> None:
         self.mixer.init(generator)
-        for name, w in list(self.ffn.items()):
-            self.ffn[name] = param(generator, tuple(w.shape), dtype=w.dtype,
-                                   device=w.device)
+        if self.kind != "ssm":
+            self.ffn.init(generator)
+
+    def _ffn(self, x):
+        if self.kind == "ssm":
+            return x
+        return x + swiglu(self.ffn, rms_norm(x, self.ln2, self.cfg.norm_eps))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         """Training-path block (the reference's ``apply_block``)."""
         cfg = self.cfg
-        h = attn.attention(self.mixer, cfg, rms_norm(x, self.ln1,
-                                                     cfg.norm_eps),
-                           positions, self.kind)
-        x = x + h
-        return x + swiglu(self.ffn, rms_norm(x, self.ln2, cfg.norm_eps))
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        if self.kind in ATTENTION:
+            h = attn.attention(self.mixer, cfg, h, positions, self.kind)
+        elif self.kind == "rglru":
+            h = rglru_lib.rglru_block(self.mixer, cfg, h)
+        else:
+            h = ssm_lib.ssm_block(self.mixer, cfg, h)
+        return self._ffn(x + h)
+
+    def init_cache(self, batch: int, max_len: int, dtype, device) -> dict:
+        """``{"k", "v"}`` for attention, ``{"h", "conv"}`` for RG-LRU,
+        ``{"state", "conv"}`` for SSM (states in f32)."""
+        if self.kind in ATTENTION:
+            return attn.init_cache(self.cfg, batch, max_len, self.kind,
+                                   dtype, device)
+        if self.kind == "rglru":
+            return rglru_lib.init_rglru_cache(self.cfg, batch, dtype, device)
+        return ssm_lib.init_ssm_cache(self.cfg, batch, dtype, device)
 
     def prefill(self, x, positions, cache):
         cfg = self.cfg
-        h, cache = attn.prefill_attention(
-            self.mixer, cfg, rms_norm(x, self.ln1, cfg.norm_eps), positions,
-            self.kind, cache)
-        x = x + h
-        return x + swiglu(self.ffn, rms_norm(x, self.ln2, cfg.norm_eps)), \
-            cache
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        if self.kind in ATTENTION:
+            h, cache = attn.prefill_attention(self.mixer, cfg, h, positions,
+                                              self.kind, cache)
+        elif self.kind == "rglru":
+            h, cache = rglru_lib.rglru_prefill(self.mixer, cfg, h, cache)
+        else:
+            h, cache = ssm_lib.ssm_prefill(self.mixer, cfg, h, cache)
+        return self._ffn(x + h), cache
 
     def decode(self, x, pos: int, cache):
         cfg = self.cfg
-        h, cache = attn.decode_attention(
-            self.mixer, cfg, rms_norm(x, self.ln1, cfg.norm_eps), pos,
-            self.kind, cache)
-        x = x + h
-        return x + swiglu(self.ffn, rms_norm(x, self.ln2, cfg.norm_eps)), \
-            cache
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        if self.kind in ATTENTION:
+            h, cache = attn.decode_attention(self.mixer, cfg, h, pos,
+                                             self.kind, cache)
+        elif self.kind == "rglru":
+            h, cache = rglru_lib.rglru_decode(self.mixer, cfg, h, cache)
+        else:
+            h, cache = ssm_lib.ssm_decode(self.mixer, cfg, h, cache)
+        return self._ffn(x + h), cache
 
 
 class DecoderLM(torch.nn.Module):
@@ -103,7 +134,7 @@ class DecoderLM(torch.nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.dtype = _DTYPES[cfg.dtype]
+        self.dtype = DTYPES[cfg.dtype]
         self.device = torch.device(device)
         self.kinds = tuple(cfg.pattern_layers)
         self.embedding = torch.nn.Parameter(torch.empty(
@@ -152,10 +183,8 @@ class DecoderLM(torch.nn.Module):
         and autograd recording, each block recomputes its activations in
         the backward pass (the reference's ``jax.checkpoint``)."""
         x, positions = self._inputs(batch)
-        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = (checkpoint(blk, x, positions, use_reentrant=False)
-                 if remat else blk(x, positions))
+            x = remat_call(self.cfg, blk, x, positions)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux
 
@@ -181,9 +210,9 @@ class DecoderLM(torch.nn.Module):
     # -- serving ----------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> list:
-        """One zeroed ``{"k", "v"}`` cache per layer."""
-        return [attn.init_cache(self.cfg, batch, max_len, kind, self.dtype,
-                                self.device) for kind in self.kinds]
+        """One zeroed cache per layer, of its kind (``Block.init_cache``)."""
+        return [blk.init_cache(batch, max_len, self.dtype, self.device)
+                for blk in self.blocks]
 
     @torch.no_grad()
     def prefill(self, batch, cache):
@@ -211,25 +240,27 @@ class DecoderLM(torch.nn.Module):
 
     @torch.no_grad()
     def attention_maps(self, batch):
-        """Post-softmax attention of the *last* attention layer, for the
-        mask DB: the blocks before it run, then its scores are recomputed
-        and softmaxed in f32.  Returns (B, heads, S, S) float32."""
+        """Post-softmax attention of the *last attention layer* (the last
+        ``"global"``/``"local"`` block, which in a hybrid stack need not be
+        the last block), for the mask DB: the blocks before it run, then
+        its scores are recomputed and softmaxed in f32.  Returns
+        (B, heads, S, S) float32, or ``None`` for an attention-free
+        stack."""
         cfg = self.cfg
+        layers = [i for i, k in enumerate(self.kinds) if k in ATTENTION]
+        if not layers:
+            return None
         x, positions = self._inputs(batch)
-        last = len(self.blocks) - 1
+        last = layers[-1]
         for blk in self.blocks[:last]:
             x = blk(x, positions)
         blk = self.blocks[last]
         q, k, _ = attn._qkv(blk.mixer, cfg, rms_norm(x, blk.ln1,
                                                      cfg.norm_eps),
                             positions, blk.kind)
-        b, s, hq, d = q.shape
-        k = attn.repeat_kv(k, hq // k.shape[2])
-        # the product and the ÷ sqrt(D) in the compute dtype, as the
-        # reference divides by a weakly typed scalar before the f32 cast
-        scores = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1))
-        scores = scores / torch.tensor(attn.sqrt_f32(d), dtype=scores.dtype)
+        s, hq = q.shape[1], q.shape[2]
+        scores = attn.map_scores(q, attn.repeat_kv(k, hq // k.shape[2]))
         mask = attn.causal_mask(s, s, 0, cfg.local_window
                                 if blk.kind == "local" else 0, self.device)
-        scores = scores.float().masked_fill(~mask, attn.NEG_INF)
+        scores = scores.masked_fill(~mask, attn.NEG_INF)
         return torch.softmax(scores, dim=-1)

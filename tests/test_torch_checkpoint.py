@@ -13,6 +13,7 @@ command resumes to the uninterrupted run's weights.
 import dataclasses
 import io
 import os
+import shutil
 import signal
 from contextlib import redirect_stdout
 
@@ -143,6 +144,9 @@ def test_preemption_guard_checkpoints_and_stops(tmp_path):
 
 CROSS = [("granite_3_2b", {}),
          ("gemma3_27b", {}),             # tail layers, qk-norm, 6 blocks
+         ("recurrentgemma_2b", {}),      # RG-LRU groups and tail layers
+         ("mamba2_13b", {}),             # SSD blocks, f32 vectors
+         ("whisper_large_v3", {}),       # enc/dec stacks
          ("granite_3_2b", {"moments_dtype": "bfloat16", "use_master": False})]
 
 
@@ -293,3 +297,25 @@ def test_launcher_trains_a_callers_model():
     other = build_model(load_smoke("qwen3_32b"), "cpu")
     with pytest.raises(ValueError):
         train_cli.run(ARGS, model=other)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_13b",
+                                  "whisper_large_v3"])
+def test_launcher_trains_and_resumes_each_family(tmp_path, arch):
+    """The launcher, unchanged, over the hybrid, SSM and encoder-decoder
+    SMOKE configs: 3 steps in 2 microbatches with finite losses and a
+    checkpoint after each; with the last checkpoint removed, the same
+    command resumes from step 1 to the uninterrupted run's state."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--seq-len",
+            "16", "--global-batch", "4", "--microbatches", "2",
+            "--log-every", "1", "--steps", "3", "--save-every", "1",
+            "--ckpt-dir", str(tmp_path)]
+    with redirect_stdout(io.StringIO()):
+        whole = train_cli.run(args)
+        shutil.rmtree(tmp_path / "step_00000002")
+        resumed = train_cli.run(args)
+    assert all(np.isfinite(r["loss"]) for r in whole["records"])
+    assert [r["step"] for r in resumed["records"]] == [2]
+    assert resumed["records"][0]["loss"] == whole["records"][2]["loss"]
+    assert _equal(_state_tensors(resumed["model"], resumed["opt_state"]),
+                  _state_tensors(whole["model"], whole["opt_state"]))

@@ -1047,3 +1047,73 @@ def test_train_step_on_the_card_matches_cpu(cuda, no_tf32):
         allowed = 1e-5 * max(1.0, float(want.abs().max())) + \
             1e-5 * want.abs() + 2.5 * lr * n
         assert bool(((got - want).abs() <= allowed).all()), name
+
+
+# ---------------------------------------------------------------------------
+# the recurrent and encoder-decoder families on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_13b",
+                                  "whisper_large_v3"])
+def test_other_families_on_the_card_match_cpu(cuda, no_tf32, arch):
+    """Each family's SMOKE config in float32 (generator seed 0, ``wq``/
+    ``wk`` at 1/4): logits within 1e-4 of their scale, the family's mask
+    source (recurrentgemma's last local layer's attention maps, mamba2's
+    input saliency, whisper's cross maps) within 1e-5 (saliency 1e-4),
+    and the greedy tokens of prefill + 5 decode steps equal, card against
+    CPU, TF32 off."""
+    from repro_torch.configs import load_smoke
+    from repro_torch.core import saliency
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import (cross_entropy, logits_from_tied,
+                                           rms_norm)
+    cfg = dataclasses.replace(load_smoke(arch), dtype="float32")
+    cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith(("wq", "wk")):
+                p.mul_(0.25)
+    card = build_model(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = serve.prompt_batch(cfg, 2, 24, seed=3)
+
+    def loss_fn(m, b, emb):
+        pos = torch.arange(emb.shape[1], device=emb.device).expand(
+            emb.shape[:2])
+        x = emb
+        for blk in m.blocks:
+            x = blk(x, pos)
+        h = rms_norm(x, m.final_norm, m.cfg.norm_eps)
+        return cross_entropy(logits_from_tied(m.embedding, h,
+                                              m.cfg.vocab_size),
+                             torch.as_tensor(b["labels"], device=emb.device))
+
+    def outputs(m):
+        with torch.no_grad():
+            if cfg.is_encoder_decoder:
+                h = m._decoder(batch["tokens"], m.encode(batch["audio_feats"]))
+                logits = logits_from_tied(m.embedding, h, cfg.vocab_size)
+                maps = m.cross_attention_maps(batch)
+            else:
+                logits = m.logits(batch)[0]
+                maps = m.attention_maps(batch)
+        if maps is None:
+            t = torch.as_tensor(batch["tokens"], device=m.device).long()
+            maps = saliency.input_saliency(loss_fn, m, {
+                "labels": np.roll(batch["tokens"], -1, axis=1),
+                "embeddings": m.embedding[t]})
+            assert float(maps.max()) > 0
+        return logits, maps
+    want, got = outputs(cpu), outputs(card)
+    assert got[0].device.type == cuda.type
+    v = cfg.vocab_size                          # past it, pad columns
+    scale = max(1.0, float(want[0][..., :v].abs().max()))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0,
+                               atol=1e-4 * scale)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0,
+                               atol=1e-4 if arch == "mamba2_13b" else 1e-5)
+    want = serve.greedy_generate(cpu, batch, 6)
+    got = serve.greedy_generate(card, batch, 6)
+    assert got["finite"] and torch.equal(got["tokens"].cpu(), want["tokens"])

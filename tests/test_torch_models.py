@@ -50,8 +50,7 @@ from repro_torch.models.layers import count_params
 
 DENSE = ("granite_3_2b", "codeqwen15_7b", "qwen3_32b", "gemma3_27b",
          "internvl2_1b")
-UNPORTED = ("deepseek_v3_671b", "deepseek_v2_236b", "recurrentgemma_2b",
-            "mamba2_13b", "whisper_large_v3")
+UNPORTED = ("deepseek_v3_671b", "deepseek_v2_236b")
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 B, S = 2, 32
@@ -86,7 +85,12 @@ def tensor(a, dtype=None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
-NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+NORMS = ("ln1", "ln2", "ln_x", "final_norm", "enc_norm", "dec_norm",
+         "q_norm", "k_norm", "out_norm")
+# per-channel vectors of the recurrent mixers (f32 in every model): the
+# init's value, to which a draw of this scale is added
+VECTORS = {"lam": (0.0, 1.0), "conv_b": (0.0, 0.1), "a_log": (0.0, 0.1),
+           "dt_bias": (0.0, 0.1), "d_skip": (1.0, 0.1)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,11 +102,14 @@ def _param_shapes(arch: str):
 
 def reference_params(cfg, qk_scale: float = 1.0, seed: int = 0):
     """A parameter tree in the JAX package's layout (stacked groups,
-    tail), drawn with numpy: the reference init's scales — truncated
-    normal over its fan-in ``shape[-2]``, embedding rows at scale 1 —
-    with norm weights nonzero (±0.1, so ``1 + weight`` is exercised) and
-    ``wq``/``wk`` further scaled by ``qk_scale``.  Leaves are numpy
-    arrays in the reference's dtypes (norms float32)."""
+    tail; an encoder-decoder's ``enc``/``dec`` stacks), drawn with numpy:
+    the reference init's scales — truncated normal over its fan-in
+    ``shape[-2]``, embedding rows at scale 1 — with norm weights nonzero
+    (±0.1, so ``1 + weight`` is exercised), the recurrent mixers'
+    per-channel ``VECTORS`` at their init's values plus noise (``lam``
+    truncated normal at scale 1) and ``wq``/``wk`` further scaled by
+    ``qk_scale``.  Leaves are numpy arrays in the reference's dtypes
+    (norms and ``VECTORS`` float32)."""
     rng = np.random.default_rng(seed)
     dtype = jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32
     arch = next(a for a in jconfigs.ARCH_IDS
@@ -114,6 +121,9 @@ def reference_params(cfg, qk_scale: float = 1.0, seed: int = 0):
             return jnp.asarray(0.1 * rng.standard_normal(leaf.shape),
                                jnp.float32)
         x = np.clip(rng.standard_normal(leaf.shape), -2.0, 2.0)
+        if name in VECTORS:
+            at, scale = VECTORS[name]
+            return jnp.asarray(at + scale * x, jnp.float32)
         if name != "embedding":
             x = x / np.sqrt(leaf.shape[-2])
         if name in ("wq", "wk"):

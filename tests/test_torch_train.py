@@ -71,11 +71,11 @@ def ref_leaves(model, values) -> list:
         to_np, convert.reference_tree(model, values)))
 
 
-def twins(dtype, **overrides):
+def twins(dtype, arch=ARCH, **overrides):
     """(JAX model, its params, port model carrying the same params, cfg)."""
-    jc = dataclasses.replace(jconfigs.load_smoke(ARCH), dtype=dtype,
+    jc = dataclasses.replace(jconfigs.load_smoke(arch), dtype=dtype,
                              **overrides)
-    tc = dataclasses.replace(tconfigs.load_smoke(ARCH), dtype=dtype,
+    tc = dataclasses.replace(tconfigs.load_smoke(arch), dtype=dtype,
                              **overrides)
     params = reference_params(jc, qk_scale=0.25)
     tm = convert.load_reference_params(tbuild(tc, "cpu"),
@@ -276,7 +276,22 @@ def close_after_steps(got, want, noisy, lr_sum, dtype, what):
 @pytest.mark.parametrize("steps", [1, 3])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_train_steps_match_the_reference(dtype, steps):
-    jm, params, tm, cfg = twins(dtype)
+    train_steps_match(ARCH, dtype, steps)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_13b",
+                                  "whisper_large_v3"])
+def test_a_train_step_of_each_family_matches_the_reference(arch):
+    """One float32 step through ``train_loop`` for the hybrid, SSM and
+    encoder-decoder families (whisper's batches carry ``audio_feats``)."""
+    train_steps_match(arch, "float32", 1)
+
+
+def train_steps_match(arch, dtype, steps):
+    """``steps`` train steps of ``arch``'s SMOKE config in both packages
+    from the same params and batches: grads, metrics, params and master
+    copies within the module docstring's rule."""
+    jm, params, tm, cfg = twins(dtype, arch)
     jc, tc = jopt.OptConfig(**OPT), topt.OptConfig(**OPT)
     data = SyntheticLMData(cfg, 16, 4)
     jstep = jax.jit(jloop.make_train_step(jm, jc))
