@@ -22,7 +22,11 @@ traces what ``chip_smoke.py``'s phase 12 runs: 8 greedy decode steps
 after phase 12's prefill (8 x 128 tokens; whisper 8 x 1,500 frames and 16
 tokens) and one harvest batch of the family's mask source (64 x 224
 tokens of attention maps or input saliency; 16 whisper cross-attention
-maps of 448 tokens x 1,500 frames).  Needs a CUDA device.
+maps of 448 tokens x 1,500 frames).  With ``--arch deepseek_v2_236b`` it
+builds deepseek-v2-236b at full width cut to ``chip_smoke.py``'s 8 layers
+(1 dense + 7 MoE) and traces what phase 13 runs: 8 greedy decode steps
+after the 8 x 128 prefill and one harvest batch of 32 expert-utilisation
+masks (224 tokens, layer 7's router).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
-OTHER_ARCHS = ("recurrentgemma_2b", "mamba2_13b", "whisper_large_v3")
+OTHER_ARCHS = ("recurrentgemma_2b", "mamba2_13b", "whisper_large_v3",
+               "deepseek_v2_236b")
 
 
 def busy_ms(events) -> float:
@@ -80,14 +85,17 @@ def trace(torch, label, fn, smi) -> None:
 
 
 def trace_other(torch, arch, smi) -> None:
-    """Phase 12's serve and harvest paths of ``arch`` at full width: 8
-    decode steps, then one harvest batch."""
+    """Phase 12's (deepseek: phase 13's) serve and harvest paths of
+    ``arch`` at full width: 8 decode steps, then one harvest batch."""
+    import dataclasses
     import chip_smoke
     from repro_torch.configs import load_arch
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     dev = torch.device("cuda")
     cfg = load_arch(arch)
+    if arch == chip_smoke.DEEPSEEK_ARCH:
+        cfg = dataclasses.replace(cfg, num_layers=chip_smoke.DEEPSEEK_LAYERS)
     model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
     model.requires_grad_(False)
     prompt = chip_smoke.other_prompt(serve, cfg)
@@ -108,12 +116,20 @@ def trace_other(torch, arch, smi) -> None:
     del cache, logits, token
     torch.cuda.empty_cache()
 
-    one = chip_smoke.OTHER_BATCH[arch]
-    chip_smoke.other_harvest(torch, model, cfg, arch, dev, one)  # warm-up
+    if arch == chip_smoke.DEEPSEEK_ARCH:
+        one = chip_smoke.EXPERT_BATCH
+
+        def harvest():
+            return chip_smoke.expert_harvest(torch, model, dev, one)
+    else:
+        one = chip_smoke.OTHER_BATCH[arch]
+
+        def harvest():
+            return chip_smoke.other_harvest(torch, model, cfg, arch, dev, one)
+    harvest()                                                # warm-up
     what = []
     trace(torch, f"{cfg.name} harvest batch ({one} masks)",
-          lambda: what.append(chip_smoke.other_harvest(
-              torch, model, cfg, arch, dev, one)[2]), smi)
+          lambda: what.append(harvest()[2]), smi)
     print(f"{cfg.name} harvest batch: {what[0]}; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
 

@@ -5,8 +5,9 @@
                                # 8,192 (saliency, attention) pairs and
                                # 4,096 masks from granite-3.0-2B, 224x224,
                                # then granite-3.0-2B trained at full width,
-                               # then recurrentgemma-2b, mamba2-1.3b and
-                               # whisper-large-v3 serving and making masks
+                               # then recurrentgemma-2b, mamba2-1.3b,
+                               # whisper-large-v3 and deepseek-v2-236b
+                               # (8 of 60 layers) serving and making masks
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -127,7 +128,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    mamba2: 1,024 input-saliency grids, ``attention_maps`` being ``None``;
    whisper: 1,024 cross-attention maps of 448 tokens x 1,500 frames,
    resized to 224x224), then phase 10's index-and-query window over them
-   (``other <model> launches`` and ``other <model> parity`` lines).
+   (``other <model> launches`` and ``other <model> parity`` lines);
+13. the DeepSeek family: deepseek-v2-236b at full width (d_model 5120,
+   128 MLA heads, 160 routed experts top-6 + 2 shared, vocab 102,400;
+   bf16, random weights from generator seed 0 at the reference's init
+   scales) with its depth cut to 8 layers, 1 dense + 7 MoE (28.67 B
+   parameters, 57.33 GB), serves ``launch/serve.py``'s prefill of 8 x 128
+   tokens and 32 greedy decode steps beside the decode bound (each step
+   reads every expert of every layer: the reference's capacity dispatch
+   runs all 160 at capacity 1); 2,048 224x224 expert-utilisation masks
+   are harvested from layer 7's router (``router_probs`` of 224-token
+   ``SyntheticLMData`` sequences, 32 a batch, then
+   ``expert_utilization_map``) and go through phase 10's index-and-query
+   window (``deepseek launches`` and ``deepseek parity`` lines); then a
+   2-layer float32 cut (1 dense + 1 MoE) on the card against the port's
+   CPU path at the configs' own capacity (assignments drop on both), and
+   at capacity factor 100 against teacher forcing (``deepseek check``);
+   last, deepseek-v3-671b at full width cut to 4 layers (3 dense + 1 MoE)
+   and its multi-token-prediction head (25.79 B parameters): a prefill of
+   8 x 128 and one ``loss`` of 4 x 512 tokens with ``labels_mtp`` (``ce``,
+   ``aux``, ``ce_mtp``, ``loss`` finite).
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
@@ -225,6 +245,19 @@ OTHER_MASKS = {"recurrentgemma_2b": 4096, "mamba2_13b": 1024,
 OTHER_BATCH = {"recurrentgemma_2b": 64, "mamba2_13b": 64,
                "whisper_large_v3": 16}
 WHISPER_FRAMES, WHISPER_PROMPT = 1500, 16     # its 30-s window; a prompt
+
+# the DeepSeek family (phase 13): full width, depth cut to fit one card;
+# the parameter counts are jax.eval_shape's of the JAX package's init at
+# these depths (tests/test_torch_deepseek.py holds the port's full-depth
+# counts and leaf shapes to it)
+DEEPSEEK_ARCH = "deepseek_v2_236b"
+DEEPSEEK_LAYERS = 8         # 1 dense + 7 MoE
+DEEPSEEK_PARAMS = 28_667_089_920
+DEEPSEEK_V3_ARCH = "deepseek_v3_671b"
+DEEPSEEK_V3_LAYERS = 4      # 3 dense + 1 MoE, and the MTP head
+DEEPSEEK_V3_PARAMS = 25_794_476_032
+N_EXPERT_MASKS = 2048       # 224-token sequences → 224x224 masks
+EXPERT_BATCH = 32
 
 FILTER_SQL = ("SELECT mask_id FROM MasksDatabaseView "
               "WHERE CP(mask, roi, (0.8, 1.0)) / AREA(roi) < 0.02;")
@@ -2685,10 +2718,10 @@ def decode_bytes(model, cache, pos: int) -> int:
     """The bytes a greedy decode step at position ``pos`` must move: the
     parameters it reads (a decoder LM's all; an encoder-decoder's decoder,
     embedding and final norm, not its encoder), every cache tensor read
-    once — of a self-attention ``k``/``v`` only the ``pos + 1`` slots the
-    step attends to (the port's masked read touches the empty ones as
-    well) —, and the recurrent states (``h``, ``state``) written once
-    more."""
+    once — of a self-attention ``k``/``v`` (MLA: ``ckv``/``kpe``) only the
+    ``pos + 1`` slots the step attends to (the port's masked read touches
+    the empty ones as well) —, and the recurrent states (``h``,
+    ``state``) written once more."""
     if model.cfg.is_encoder_decoder:
         params = [p for n, p in model.named_parameters()
                   if not n.startswith(("enc.", "enc_norm"))]
@@ -2698,7 +2731,7 @@ def decode_bytes(model, cache, pos: int) -> int:
     for c in cache:
         for k, t in c.items():
             size = t.numel() * t.element_size()
-            if k in ("k", "v"):
+            if k in ("k", "v", "ckv", "kpe"):
                 size = size // t.shape[1] * min(pos + 1, t.shape[1])
             n += size * (2 if k in ("h", "state") else 1)
     return n
@@ -2939,6 +2972,253 @@ def other_phase(torch, dev, smi) -> None:
     print(f"other producers phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- 13. the DeepSeek family: MLA, MoE, the dense prefix and the MTP head -----
+
+def expert_harvest(torch, model, dev, n):
+    """``n`` expert-utilisation masks (host float32 (n, 224, 224)): 224-token
+    ``SyntheticLMData`` sequences in batches of ``EXPERT_BATCH`` through
+    ``PrefetchIterator``, the last MoE layer's router probabilities
+    (``router_probs``, (B, 224, E) float32), ``expert_utilization_map``
+    onto 224x224 → (masks, seconds, what)."""
+    from repro_torch.core import saliency
+    from repro_torch.data.pipeline import PrefetchIterator, SyntheticLMData
+    data = SyntheticLMData(model.cfg, H, n, seed=0).batch_at(0)
+    source = ({k: v[i:i + EXPERT_BATCH] for k, v in data.items()}
+              for i in range(0, n, EXPERT_BATCH))
+    last = max(i for i, blk in enumerate(model.blocks) if blk.use_moe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = torch.cat([saliency.expert_utilization_map(model.router_probs(b),
+                                                     H, W)
+                     for b in PrefetchIterator(source, depth=2)])
+    torch.cuda.synchronize()
+    what = (f"router_probs of layer {last} (B, {H}, "
+            f"{model.cfg.num_experts}) float32 -> expert_utilization_map "
+            f"{H}x{W}")
+    return out.cpu().numpy(), time.perf_counter() - t0, what
+
+
+def deepseek_cut_checks(torch, cfg, dev, smi) -> None:
+    """A 2-layer float32 cut of deepseek-v2 at full width (1 dense + 1 MoE
+    layer, ~19.3 GB; random weights from generator seed 1, the reference's
+    init scales), TF32 off: prefill of 2 x 16 tokens (capacity 1 a call,
+    the configs' own factor, so assignments drop) and 4 decode steps on
+    the card against the port's CPU path with the same weights (logits
+    1e-4 of their scale), and the router probabilities the masks come
+    from (1e-5); then at capacity factor 100 (nothing drops) prefill + 8
+    decode steps against teacher forcing (2e-2, as the reference's test:
+    the absorbed MLA decode against the materialised one)."""
+    import dataclasses
+    import gc
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, moe
+    cut = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    card = build_model(cut, dev).init(torch.Generator(dev).manual_seed(1))
+    cpu = build_model(cut, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    tokens = serve.prompt_batch(cut, 2, 24, seed=2)["tokens"]
+    prompt = {"tokens": tokens[:, :16]}
+    probs = cpu.router_probs(prompt)
+    _, ids = moe.top_k(probs.reshape(-1, cut.num_experts), cut.top_k)
+    counts = torch.bincount(ids.reshape(-1), minlength=cut.num_experts)
+    cap = moe.capacity(cut, 32)
+    n_drop = int((counts - cap).clamp(min=0).sum())
+    if n_drop == 0:
+        fail(f"deepseek cut: no assignment dropped at capacity {cap}")
+    outs = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        cache = m.init_cache(2, 24)
+        lp, cache = m.prefill(prompt, cache)
+        steps = [lp[:, 0]]
+        for pos in range(16, 20):
+            ld, cache = m.decode_step(cache, tokens[:, pos:pos + 1], pos)
+            steps.append(ld[:, 0])
+        outs[name] = torch.stack([x.cpu() for x in steps])[..., :cut.vocab_size]
+    want = outs["cpu"]
+    scale = max(1.0, float(want.abs().max()))
+    e_serve = float((outs["card"] - want).abs().max())
+    e_probs = float((card.router_probs(prompt).cpu() - probs).abs().max())
+    if not torch.isfinite(outs["card"]).all():
+        fail("deepseek cut: non-finite logits on the card")
+    if e_serve > 1e-4 * scale or e_probs > 1e-5:
+        fail(f"deepseek cut: the card differs from the CPU (prefill + "
+             f"decode logits {e_serve} at scale {scale}, router "
+             f"probabilities {e_probs})")
+    del cpu
+    gc.collect()
+    with torch.no_grad():
+        full, _ = card.logits({"tokens": tokens})
+    off = float((outs["card"][0] - full[:, 15, :cut.vocab_size].cpu()
+                 ).abs().max())
+    whole = build_model(dataclasses.replace(cut, capacity_factor=100.0), dev)
+    whole.load_state_dict(card.state_dict())
+    del card
+    with torch.no_grad():
+        full, _ = whole.logits({"tokens": tokens})
+    cache = whole.init_cache(2, 24)
+    lp, cache = whole.prefill(prompt, cache)
+    steps = [(lp[:, 0], full[:, 15])]
+    for pos in range(16, 24):
+        ld, cache = whole.decode_step(cache, tokens[:, pos:pos + 1], pos)
+        steps.append((ld[:, 0], full[:, pos]))
+    err = max(float((got - w).abs().max()) for got, w in steps)
+    if not all(bool(((got - w).abs() <= 2e-2 + 2e-2 * w.abs()).all())
+               for got, w in steps):
+        fail(f"deepseek cut: decode leaves teacher forcing (max err {err})")
+    del whole
+    print(f"deepseek check: 2-layer float32 cut at full width (1 dense + 1 "
+          f"MoE): prefill 2x16 (capacity {cap}: {n_drop} of "
+          f"{32 * cut.top_k} "
+          f"assignments dropped) + 4 decode steps, card vs CPU max err "
+          f"{e_serve:.3e} (scale {scale:.1f}, atol 1e-4 of it), router "
+          f"probabilities {e_probs:.3e} (atol 1e-5); prefill's last logits "
+          f"{off:.3f} off teacher forcing (capacity per call, as the "
+          f"reference); at capacity factor 100 prefill + 8 decode steps "
+          f"equal teacher forcing (max err {err:.3e}, rtol = atol = 2e-2), "
+          f"TF32 off ({smi})")
+
+
+def deepseek_phase(torch, dev, smi) -> None:
+    """Phase 13: deepseek-v2-236b at full width cut to 8 layers (1 dense +
+    7 MoE; bf16, random weights from generator seed 0) serves prefill and
+    32 greedy decode steps, harvests expert-utilisation masks from layer
+    7's router and indexes and queries them in a launch window of its own;
+    then the float32 cut's checks; then deepseek-v3-671b at full width cut
+    to 4 layers and its MTP head: a prefill and one loss with
+    ``labels_mtp``."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import load_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import count_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(load_arch(DEEPSEEK_ARCH),
+                              num_layers=DEEPSEEK_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = count_params(model)
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if n_params != DEEPSEEK_PARAMS:
+        fail(f"{cfg.name}: {n_params:,} parameters at {DEEPSEEK_LAYERS} "
+             f"layers, the reference's init has {DEEPSEEK_PARAMS:,}")
+    moe_layers = sum(blk.use_moe for blk in model.blocks)
+    print(f"deepseek model {cfg.name}: {cfg.num_layers} layers ("
+          f"{cfg.num_layers - moe_layers} dense + {moe_layers} MoE) of "
+          f"{load_arch(DEEPSEEK_ARCH).num_layers}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} MLA heads (q/kv LoRA {cfg.q_lora_rank}/"
+          f"{cfg.kv_lora_rank}), {cfg.num_experts} experts top-{cfg.top_k} "
+          f"+ {cfg.num_shared_experts} shared (d_ff {cfg.moe_d_ff}; dense "
+          f"{cfg.d_ff}), vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{n_params:,} parameters, {n_bytes:,} B; random init "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+    # -- 13a. serve: prefill, then greedy decode ------------------------------
+    prompt = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
+    serve.greedy_generate(model, prompt, 2)              # warm-up
+    out = serve.greedy_generate(model, prompt, SERVE_STEPS + 1)
+    if not out["finite"]:
+        fail(f"{cfg.name} serve: non-finite logits")
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_STEPS + 1)
+    bound_ms = float(np.mean([decode_bytes(model, cache, pos) for pos in
+                              range(SERVE_PROMPT, SERVE_PROMPT + SERVE_STEPS)])
+                     ) / PEAK_BYTES_S * 1e3
+    del cache
+    step_ms = out["decode_s"] / SERVE_STEPS * 1e3
+    print(f"deepseek serve {cfg.name}: prefill {SERVE_BATCH}x{SERVE_PROMPT} "
+          f"{out['prefill_s'] * 1e3:.3f} ms; {SERVE_STEPS} greedy decode "
+          f"steps x{SERVE_BATCH}: {step_ms:.3f} ms a step, "
+          f"{SERVE_STEPS * SERVE_BATCH / out['decode_s']:.1f} tok/s (bound "
+          f"{bound_ms:.3f} ms a step: every expert of every layer at "
+          f"capacity 1, the weights and the compressed cache up to the "
+          f"step's position at 3.35 TB/s); logits finite; sample "
+          f"{out['tokens'][0, :8].tolist()} ({smi})")
+
+    # -- 13b. harvest expert-utilisation masks --------------------------------
+    model.requires_grad_(False)
+    masks, harvest_s, what = expert_harvest(torch, model, dev, N_EXPERT_MASKS)
+    if masks.shape != (N_EXPERT_MASKS, H, W) or masks.dtype != np.float32:
+        fail(f"{cfg.name}: masks {masks.shape} {masks.dtype}")
+    if not (np.isfinite(masks).all() and masks.min() >= 0 and
+            masks.max() < 1):
+        fail(f"{cfg.name}: masks are not finite values in [0, 1)")
+    print(f"deepseek harvest {cfg.name}: {N_EXPERT_MASKS} masks {H}x{W} "
+          f"float32 via {what}, {EXPERT_BATCH} a batch, in {harvest_s:.3f} "
+          f"s ({N_EXPERT_MASKS / harvest_s:.1f} masks/s, "
+          f"{N_EXPERT_MASKS * H / harvest_s:.0f} tok/s); values in "
+          f"[{masks.min()}, {masks.max()}]; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13c. index, then query: one launch window ----------------------------
+    t0 = time.perf_counter()
+    index_and_query(torch, dev, masks, N_EXPERT_MASKS // 2, "deepseek", smi)
+    print(f"deepseek window: {time.perf_counter() - t0:.1f} s")
+    del masks
+
+    # -- 13d. the float32 cut: card vs CPU, teacher forcing -------------------
+    t0 = time.perf_counter()
+    deepseek_cut_checks(torch, cfg, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"deepseek cut checks: {time.perf_counter() - t0:.1f} s")
+
+    # -- 13e. deepseek-v3: the dense prefix, MoE and the MTP head -------------
+    cfg3 = dataclasses.replace(load_arch(DEEPSEEK_V3_ARCH),
+                               num_layers=DEEPSEEK_V3_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg3, dev).init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = count_params(model)
+    if n_params != DEEPSEEK_V3_PARAMS:
+        fail(f"{cfg3.name}: {n_params:,} parameters at {DEEPSEEK_V3_LAYERS} "
+             f"layers, the reference's init has {DEEPSEEK_V3_PARAMS:,}")
+    init_s = time.perf_counter() - t0
+    prompt = serve.prompt_batch(cfg3, SERVE_BATCH, SERVE_PROMPT)
+    model.prefill(prompt, model.init_cache(SERVE_BATCH, SERVE_PROMPT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(prompt, model.init_cache(SERVE_BATCH,
+                                                       SERVE_PROMPT))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{cfg3.name}: non-finite prefill logits")
+    batch = SyntheticLMData(cfg3, 512, 4, seed=0).batch_at(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, metrics = model.loss(batch)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    loss_ms = (time.perf_counter() - t0) * 1e3
+    if set(metrics) != {"ce", "aux", "ce_mtp", "loss"} or not all(
+            np.isfinite(v) for v in metrics.values()):
+        fail(f"{cfg3.name}: loss metrics {metrics}")
+    n_moe = sum(blk.use_moe for blk in model.blocks)
+    print(f"deepseek model {cfg3.name}: {cfg3.num_layers} layers ("
+          f"{cfg3.num_layers - n_moe} dense + {n_moe} MoE, "
+          f"{cfg3.num_experts} experts top-{cfg3.top_k}) + the MTP "
+          f"head, d_model {cfg3.d_model}: {n_params:,} parameters; random "
+          f"init {init_s:.1f} s; prefill {SERVE_BATCH}x{SERVE_PROMPT} "
+          f"{prefill_ms:.3f} ms, logits finite; loss of 4 x 512 "
+          f"SyntheticLMData tokens with labels_mtp in {loss_ms:.3f} ms: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items()) +
+          f"; peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"({smi})")
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"deepseek phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3098,6 +3378,11 @@ def main() -> int:
     # -- 12. the other producers: recurrentgemma, mamba2 and whisper at full
     # width serve, harvest masks, index and query them ----------------------
     other_phase(torch, dev, smi)
+
+    # -- 13. the DeepSeek family: deepseek-v2 at full width serves, harvests
+    # expert-utilisation masks, indexes and queries them; deepseek-v3's
+    # MTP head ----------------------------------------------------------------
+    deepseek_phase(torch, dev, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """Carry the JAX package's parameters into a port model.
 
 The reference keeps its parameters as a nested dict.  A decoder LM's
-holds ``embedding``, ``final_norm``, ``groups`` (each leaf stacked over
-the repeated layer groups on a leading axis) and ``tail`` (the layers
-past the last whole group, e.g. recurrentgemma's two RG-LRU layers); an
+holds ``embedding``, ``final_norm``, ``prefix`` (DeepSeek's leading dense
+layers, one dict each), ``groups`` (each leaf stacked over the repeated
+layer groups on a leading axis), ``tail`` (the layers past the last
+whole group, e.g. recurrentgemma's two RG-LRU layers) and ``mtp``
+(DeepSeek-V3's multi-token-prediction head); an
 encoder-decoder's holds ``embedding``, ``enc`` and ``dec`` (each leaf
 stacked over that stack's layers) and ``enc_norm``/``dec_norm``.  The
 caller hands that tree over as numpy arrays — e.g.
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from ..train.optimizer import OptState
+from .transformer import stack_plan
 
 
 def _tensor(a) -> torch.Tensor:
@@ -66,29 +69,40 @@ def _stacked_state(model, tree) -> dict:
 def reference_state(model, tree) -> dict:
     """The reference param ``tree`` as a flat ``{state_dict key: array}``
     for ``model`` (one entry per layer, the group or stack axis sliced
-    away)."""
+    away; a decoder's dense ``prefix`` layers first, then its groups and
+    tail, then the ``mtp`` head's leaves)."""
     cfg = model.cfg
     if cfg.is_encoder_decoder:
         return _stacked_state(model, tree)
-    glen = len(cfg.layer_pattern)
-    n_grouped = cfg.num_groups * glen
+    prefix, group_kinds, n_groups, tail_kinds = stack_plan(cfg)
+    n_prefix, glen = len(prefix), len(group_kinds)
+    n_grouped = n_groups * glen
     groups = {leaf.shape[0] for leaf in
               _flatten(tree.get("groups", {}), "", {}).values()}
     tail = len(tree.get("tail", {}))
-    if groups - {cfg.num_groups} or tail != len(cfg.tail_layers):
-        raise ValueError(f"the tree holds {sorted(groups)} layer groups and "
-                         f"{tail} tail layers; {cfg.name} has "
-                         f"{cfg.num_groups} and {len(cfg.tail_layers)}")
+    if (groups - {n_groups} or tail != len(tail_kinds) or
+            len(tree.get("prefix", {})) != n_prefix or
+            ("mtp" in tree) != bool(cfg.mtp_depth)):
+        raise ValueError(
+            f"the tree holds {len(tree.get('prefix', {}))} prefix layers, "
+            f"{sorted(groups)} layer groups, {tail} tail layers and "
+            f"{'an' if 'mtp' in tree else 'no'} MTP head; {cfg.name} has "
+            f"{n_prefix}, {n_groups}, {len(tail_kinds)} and "
+            f"{'one' if cfg.mtp_depth else 'none'}")
     flat = {"embedding": tree["embedding"], "final_norm": tree["final_norm"]}
     for layer in range(len(model.blocks)):
-        if layer < n_grouped:
-            g, i = divmod(layer, glen)
+        at = layer - n_prefix
+        if layer < n_prefix:
+            block = _flatten(tree["prefix"][f"block{layer}"], "", {})
+        elif at < n_grouped:
+            g, i = divmod(at, glen)
             block = _flatten(tree["groups"][f"block{i}"], "", {})
             block = {k: v[g] for k, v in block.items()}
         else:
-            block = _flatten(tree["tail"][f"block{layer - n_grouped}"], "",
-                             {})
+            block = _flatten(tree["tail"][f"block{at - n_grouped}"], "", {})
         flat.update({f"blocks.{layer}.{k}": v for k, v in block.items()})
+    if cfg.mtp_depth:
+        flat.update(_flatten(tree["mtp"], "mtp.", {}))
     return flat
 
 
@@ -126,8 +140,10 @@ def reference_tree(model, values) -> dict:
     leaves as tensors on the values' device in their own dtypes (bf16
     stays bf16, which numpy cannot hold without ``ml_dtypes``)."""
     cfg = model.cfg
-    glen = len(cfg.layer_pattern)
-    n_grouped = cfg.num_groups * glen
+    if not cfg.is_encoder_decoder:
+        prefix, group_kinds, n_groups, _ = stack_plan(cfg)
+        n_prefix, glen = len(prefix), len(group_kinds)
+        n_grouped = n_groups * glen
     names = [n for n, _ in model.named_parameters()]
     values = list(values)
     if len(values) != len(names):
@@ -140,15 +156,18 @@ def reference_tree(model, values) -> dict:
             sub = rest.partition(".")[2]           # past the layer index
             stacks.setdefault((head, *sub.split(".")), []).append(v.detach())
         elif head != "blocks":
-            tree[name] = v.detach()
+            _put(tree, name.split("."), v.detach())
         else:
             layer, _, sub = rest.partition(".")
-            layer = int(layer)
-            if layer < n_grouped:    # layers come in order: group g at g
-                stacks.setdefault(("groups", f"block{layer % glen}",
+            at = int(layer) - n_prefix
+            if at < 0:
+                _put(tree, ["prefix", f"block{layer}", *sub.split(".")],
+                     v.detach())
+            elif at < n_grouped:     # layers come in order: group g at g
+                stacks.setdefault(("groups", f"block{at % glen}",
                                    *sub.split(".")), []).append(v.detach())
             else:
-                _put(tree, ["tail", f"block{layer - n_grouped}",
+                _put(tree, ["tail", f"block{at - n_grouped}",
                             *sub.split(".")], v.detach())
     for path, per_layer in stacks.items():
         _put(tree, path, torch.stack(per_layer))

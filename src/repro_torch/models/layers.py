@@ -66,17 +66,24 @@ def count_params(module: torch.nn.Module) -> int:
 class Params(torch.nn.Module):
     """A mixer's parameters under the reference's names, read as
     ``p["name"]`` like the reference's dict: ``spec`` maps each name to
-    ``(shape, dtype, scale)``, ``scale`` as :func:`param` takes it.
-    Construction allocates them uninitialised; :meth:`init` draws them."""
+    ``(shape, dtype, scale)``, ``scale`` as :func:`param` takes it, or to
+    a nested spec (a sub-dict of the reference's, e.g. the MoE's
+    ``shared`` expert), which becomes a child ``Params``.  Construction
+    allocates them uninitialised; :meth:`init` draws them."""
 
     def __init__(self, spec: dict, device):
         super().__init__()
-        self.scales = {name: scale for name, (_, _, scale) in spec.items()}
-        for name, (shape, dtype, _) in spec.items():
-            self.register_parameter(name, torch.nn.Parameter(
-                torch.empty(shape, dtype=dtype, device=device)))
+        self.scales = {name: s[2] for name, s in spec.items()
+                       if not isinstance(s, dict)}
+        for name, s in spec.items():
+            if isinstance(s, dict):
+                self.add_module(name, Params(s, device))
+            else:
+                shape, dtype, _ = s
+                self.register_parameter(name, torch.nn.Parameter(
+                    torch.empty(shape, dtype=dtype, device=device)))
 
-    def __getitem__(self, name: str) -> torch.nn.Parameter:
+    def __getitem__(self, name: str):
         return getattr(self, name)
 
     def init(self, generator) -> None:
@@ -85,6 +92,8 @@ class Params(torch.nn.Module):
             setattr(self, name, param(generator, tuple(w.shape),
                                       dtype=w.dtype, device=w.device,
                                       scale=scale))
+        for child in self.children():
+            child.init(generator)
 
 
 # ---------------------------------------------------------------------------

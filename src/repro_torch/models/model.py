@@ -10,8 +10,7 @@ def build_model(cfg, device="cuda") -> DecoderLM | EncDecLM:
     """The port's model for ``cfg`` on ``device``, parameters allocated
     but not initialised (``.init(generator)`` or the converter fill
     them): ``EncDecLM`` for an encoder-decoder config, else
-    ``DecoderLM``, which raises ``NotImplementedError`` for a family the
-    port lacks."""
+    ``DecoderLM``."""
     if cfg.is_encoder_decoder:
         return EncDecLM(cfg, device)
     return DecoderLM(cfg, device)

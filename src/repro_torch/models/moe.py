@@ -1,0 +1,152 @@
+"""Mixture-of-Experts FFN (DeepSeek-style: shared + fine-grained routed).
+
+The port of the JAX package's ``models/moe.py``, line for line.  Routing
+is a float32 softmax over the router's logits, top-k renormalised, with
+the Switch load-balancing auxiliary loss.  Dispatch is the sort-based
+capacity scheme: the (token, expert) assignments are stably sorted by
+expert id, each gets its rank in its expert's queue, and ranks at or past
+the capacity drop (the residual passes the token on unchanged).  The
+kept rows fill ``(E, C, d)`` buffers, the routed SwiGLU experts run as
+three batched GEMMs over all experts, and the outputs return to their
+tokens weighted by their router probabilities.
+
+The capacity is reckoned per call, ``max(int(capacity_factor·T·k/E),
+1)`` over the call's T tokens, as the reference reckons it: a token's
+output depends on how many tokens share the call (ROADMAP §3), and a
+decode step of 8 sequences at full width gets C = 1.
+
+Rounding the reference fixes and the port keeps:
+
+* **Top-k ties.**  ``jax.lax.top_k`` returns the lower expert index
+  first among equal probabilities; a stable descending sort does too
+  (``torch.topk``'s tie order is unspecified).
+* **The combine.**  The reference scatter-adds each token's k weighted
+  contributions into zeros in the compute dtype, in the order of the
+  sorted assignments (ascending expert id per token).  The port gathers
+  them in that order and sums left to right in the compute dtype, which
+  is the same rounding on every device (``index_add_`` on CUDA adds with
+  atomics, in no fixed order).
+* **Dropped rows** gather ``out_buf[e, C−1]`` times a zero weight, as
+  the reference does, rather than being masked out.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .layers import Params, silu
+
+
+def moe_spec(cfg, dtype) -> dict:
+    """name → (shape, dtype, init scale), the reference's ``init_moe``:
+    the router ``(d, E)`` in float32, the routed experts stacked on a
+    leading E axis, and ``shared`` (width ``moe_d_ff`` × the shared
+    expert count) when the config has shared experts."""
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    spec = {"router": ((d, e), torch.float32, "fan_in"),
+            "gate": ((e, d, ff), dtype, "fan_in"),
+            "up": ((e, d, ff), dtype, "fan_in"),
+            "down": ((e, ff, d), dtype, "fan_in")}
+    if cfg.num_shared_experts:
+        sff = ff * cfg.num_shared_experts
+        spec["shared"] = {"gate": ((d, sff), dtype, "fan_in"),
+                          "up": ((d, sff), dtype, "fan_in"),
+                          "down": ((sff, d), dtype, "fan_in")}
+    return spec
+
+
+def init_moe(generator, cfg, dtype, device) -> Params:
+    p = Params(moe_spec(cfg, dtype), device)
+    p.init(generator)
+    return p
+
+
+def router_probs(p, x: torch.Tensor) -> torch.Tensor:
+    """(…, d) activations → (…, E) float32 router probabilities: the
+    logits in float32 (``x`` cast first), then a softmax over experts."""
+    return torch.softmax(x.float() @ p["router"], dim=-1)
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """(weights, expert ids) of the ``k`` largest probabilities per row,
+    largest first, the lower id first among equal ones (``jax.lax.top_k``'s
+    order): a stable descending sort."""
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[..., :k], ids[..., :k]
+
+
+def capacity(cfg, tokens: int) -> int:
+    """Rows per expert buffer for a call over ``tokens`` tokens."""
+    return max(int(cfg.capacity_factor * tokens * cfg.top_k /
+                   cfg.num_experts), 1)
+
+
+def combine(contrib: torch.Tensor, order: torch.Tensor, k: int):
+    """The reference's ``zeros((T, d)).at[st_].add(contrib)``: ``contrib``
+    (T·k, d) holds the weighted expert outputs in sorted order (row ``j``
+    is assignment ``order[j]``, of token ``order[j] // k``).  Each token's
+    k rows are gathered in sorted order and summed left to right in
+    ``contrib``'s dtype: the order, and so the rounding, of the
+    reference's scatter-add."""
+    tk, d = contrib.shape
+    sorted_pos = torch.empty_like(order)
+    sorted_pos[order] = torch.arange(tk, device=order.device)
+    mine = contrib[sorted_pos.view(tk // k, k).sort(dim=-1).values]
+    yf = mine[:, 0]
+    for i in range(1, k):
+        yf = yf + mine[:, i]
+    return yf
+
+
+def moe_ffn(p, cfg, x: torch.Tensor):
+    """x: (B, S, d) → (out (B, S, d), aux_loss scalar float32)."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    dev = x.device
+
+    probs = router_probs(p, xf)                              # (T, E)
+    topw, tope = top_k(probs, k)                             # (T, k)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balancing aux (Switch): E * Σ_e fraction_tokens_e · mean_prob_e
+    me = probs.mean(dim=0)
+    flat_e = tope.reshape(-1)                                # (T*k,)
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    ce = counts.float() / (t * k)
+    aux = cfg.router_aux_weight * e * torch.sum(me * ce)
+
+    c = capacity(cfg, t)
+
+    # sort-based dispatch ---------------------------------------------------
+    flat_t = torch.arange(t * k, device=dev) // k
+    flat_w = topw.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st_, sw = flat_e[order], flat_t[order], flat_w[order]
+    # rank within expert queue = position − start offset of that expert
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(t * k, device=dev) - starts[se]
+    keep = rank < c
+    slot = torch.where(keep, rank, c - 1)
+
+    # gather tokens into (E, C, d) expert buffers: each kept row has a slot
+    # of its own; a dropped row adds zeros to its expert's last slot
+    rows = torch.where(keep[:, None], xf[st_], torch.zeros((), dtype=x.dtype,
+                                                           device=dev))
+    buf = torch.zeros((e, c, d), dtype=x.dtype, device=dev)
+    buf.index_put_((se, slot), rows, accumulate=True)
+
+    h = silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
+    out_buf = torch.bmm(h, p["down"])                        # (E, C, d)
+
+    # combine back to tokens, weighted by router prob
+    weight = torch.where(keep, sw, torch.zeros((), device=dev))
+    yf = combine(out_buf[se, slot] * weight[:, None].to(x.dtype), order, k)
+
+    if cfg.num_shared_experts:
+        sp = p["shared"]
+        sh = silu(xf @ sp["gate"]) * (xf @ sp["up"])
+        yf = yf + sh @ sp["down"]
+    return yf.reshape(b, s, d), aux

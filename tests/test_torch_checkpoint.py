@@ -147,6 +147,8 @@ CROSS = [("granite_3_2b", {}),
          ("recurrentgemma_2b", {}),      # RG-LRU groups and tail layers
          ("mamba2_13b", {}),             # SSD blocks, f32 vectors
          ("whisper_large_v3", {}),       # enc/dec stacks
+         ("deepseek_v2_236b", {}),       # dense prefix, MoE groups, MLA
+         ("deepseek_v3_671b", {}),       # + the MTP head
          ("granite_3_2b", {"moments_dtype": "bfloat16", "use_master": False})]
 
 
@@ -300,10 +302,11 @@ def test_launcher_trains_a_callers_model():
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_13b",
-                                  "whisper_large_v3"])
+                                  "whisper_large_v3", "deepseek_v2_236b",
+                                  "deepseek_v3_671b"])
 def test_launcher_trains_and_resumes_each_family(tmp_path, arch):
-    """The launcher, unchanged, over the hybrid, SSM and encoder-decoder
-    SMOKE configs: 3 steps in 2 microbatches with finite losses and a
+    """The launcher, unchanged, over the hybrid, SSM, encoder-decoder and
+    DeepSeek SMOKE configs: 3 steps in 2 microbatches with finite losses and a
     checkpoint after each; with the last checkpoint removed, the same
     command resumes from step 1 to the uninterrupted run's state."""
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--seq-len",

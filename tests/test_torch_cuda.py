@@ -1117,3 +1117,128 @@ def test_other_families_on_the_card_match_cpu(cuda, no_tf32, arch):
     want = serve.greedy_generate(cpu, batch, 6)
     got = serve.greedy_generate(card, batch, 6)
     assert got["finite"] and torch.equal(got["tokens"].cpu(), want["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# the DeepSeek family on the card
+# ---------------------------------------------------------------------------
+
+
+def _deepseek_twins(cuda, arch="deepseek_v2_236b", **overrides):
+    """A SMOKE model in float32 on the CPU (generator seed 0) and its copy
+    on the card."""
+    from repro_torch.configs import load_smoke
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(load_smoke(arch), dtype="float32", **overrides)
+    cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _close(got, want, tol):
+    """``got`` (on the card) within ``tol`` of ``want``'s scale."""
+    want = want.detach().double()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.detach().cpu().double(), want, rtol=0,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("factor", [1.25, 100.0])
+def test_moe_ffn_on_the_card_matches_cpu(cuda, no_tf32, factor):
+    """deepseek-v2 SMOKE's first MoE layer, 4 x 32 tokens, at the configs'
+    capacity factor (assignments drop) and at 100: output, aux and the
+    gradients into the input and every weight within 1e-5 of scale, card
+    against CPU, TF32 off."""
+    from repro_torch.models import moe
+    cpu, card = _deepseek_twins(cuda, capacity_factor=factor)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, 32, cpu.cfg.d_model)).astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        x.shape).astype(np.float32))
+    outs = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        xi = x.to(m.device).detach().requires_grad_(True)
+        y, aux = moe.moe_ffn(m.blocks[1].ffn, m.cfg, xi)
+        torch.autograd.backward((y, aux), (g.to(m.device),
+                                           torch.tensor(3.0, device=m.device)))
+        outs[name] = [y, aux, xi.grad] + [p.grad for p in
+                                          m.blocks[1].ffn.parameters()]
+    assert outs["card"][0].device.type == cuda.type
+    for got, want in zip(outs["card"], outs["cpu"]):
+        _close(got, want, 1e-5)
+
+
+def test_mla_decode_on_the_card_matches_cpu(cuda, no_tf32):
+    """MLA on deepseek-v2 SMOKE's layer 0: prefill of 12 positions into the
+    compressed cache, then 4 absorbed decode steps, each output and cache
+    within 1e-5 of scale, card against CPU, TF32 off."""
+    from repro_torch.models import mla
+    cpu, card = _deepseek_twins(cuda)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 16, cpu.cfg.d_model)).astype(np.float32))
+    outs = {}
+    with torch.no_grad():
+        for name, m in (("cpu", cpu), ("card", card)):
+            p, cfg, dev = m.blocks[0].mixer, m.cfg, m.device
+            xd = x.to(dev)
+            cache = mla.init_mla_cache(cfg, 2, 24, torch.float32, dev)
+            pos = torch.arange(12, device=dev).expand(2, -1)
+            o, cache = mla.mla_prefill(p, cfg, xd[:, :12], pos, cache)
+            outs[name] = [o]
+            for step in range(12, 16):
+                o, cache = mla.mla_decode(p, cfg, xd[:, step:step + 1], step,
+                                          cache)
+                outs[name] += [o, cache["ckv"].clone(), cache["kpe"].clone()]
+    for got, want in zip(outs["card"], outs["cpu"]):
+        _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "deepseek_v3_671b"])
+def test_deepseek_smoke_on_the_card_matches_cpu(cuda, no_tf32, arch):
+    """deepseek-v2 and -v3 SMOKE in float32: logits (1e-4 of scale), the
+    router probabilities of the expert-utilisation masks (1e-5), the loss
+    with ``labels_mtp`` (1e-5 relative), the greedy tokens of prefill + 5
+    decode steps, then one train step in 2 microbatches (loss 1e-5
+    relative, params within ``test_train_step_on_the_card_matches_cpu``'s
+    rule), card against CPU, TF32 off."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import (make_loss_and_grads,
+                                              make_train_step)
+    cpu, card = _deepseek_twins(cuda, arch)
+    batch = SyntheticLMData(cpu.cfg, 32, 4).batch_at(0)
+    v = cpu.cfg.vocab_size
+    with torch.no_grad():
+        _close(card.logits(batch)[0][..., :v], cpu.logits(batch)[0][..., :v],
+               1e-4)
+        _close(card.router_probs(batch), cpu.router_probs(batch), 1e-5)
+        got, want = card.loss(batch)[1], cpu.loss(batch)[1]
+    assert set(got) == set(want) == ({"ce", "aux", "loss"} |
+                                     ({"ce_mtp"} if cpu.cfg.mtp_depth
+                                      else set()))
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5), k
+    prompt = serve.prompt_batch(cpu.cfg, 2, 16, seed=3)
+    want = serve.greedy_generate(cpu, prompt, 6)
+    got = serve.greedy_generate(card, prompt, 6)
+    assert got["finite"] and torch.equal(got["tokens"].cpu(), want["tokens"])
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=20)
+    _, _, grads = make_loss_and_grads(cpu, 2)(batch)
+    noisy = [g.abs() <= 1e-5 * max(1.0, float(g.abs().max()))
+             for g in grads]
+    metrics = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        opt = init_opt_state(m.parameters(), opt_cfg)
+        _, metrics[name] = make_train_step(m, opt_cfg, microbatches=2)(
+            opt, batch)
+    assert float(metrics["card"]["loss"]) == pytest.approx(
+        float(metrics["cpu"]["loss"]), rel=1e-5)
+    lr = float(metrics["cpu"]["lr"])
+    for (name, p), q, n in zip(card.named_parameters(), cpu.parameters(),
+                               noisy):
+        got, want = p.detach().cpu().double(), q.detach().double()
+        allowed = 1e-5 * max(1.0, float(want.abs().max())) + \
+            1e-5 * want.abs() + 2.5 * lr * n
+        assert bool(((got - want).abs() <= allowed).all()), name

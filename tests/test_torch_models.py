@@ -50,7 +50,6 @@ from repro_torch.models.layers import count_params
 
 DENSE = ("granite_3_2b", "codeqwen15_7b", "qwen3_32b", "gemma3_27b",
          "internvl2_1b")
-UNPORTED = ("deepseek_v3_671b", "deepseek_v2_236b")
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 B, S = 2, 32
@@ -86,7 +85,12 @@ def tensor(a, dtype=None) -> torch.Tensor:
 
 
 NORMS = ("ln1", "ln2", "ln_x", "final_norm", "enc_norm", "dec_norm",
-         "q_norm", "k_norm", "out_norm")
+         "q_norm", "k_norm", "out_norm", "kv_norm", "norm")
+# float32 in every model, drawn at the init's fan-in scale (the MoE router)
+F32 = ("router",)
+# the query and key projections ``qk_scale`` scales: GQA's, and MLA's
+# query up-projection (its keys share ``w_ukv`` with the values)
+QK = ("wq", "wk", "w_uq")
 # per-channel vectors of the recurrent mixers (f32 in every model): the
 # init's value, to which a draw of this scale is added
 VECTORS = {"lam": (0.0, 1.0), "conv_b": (0.0, 0.1), "a_log": (0.0, 0.1),
@@ -105,11 +109,12 @@ def reference_params(cfg, qk_scale: float = 1.0, seed: int = 0):
     tail; an encoder-decoder's ``enc``/``dec`` stacks), drawn with numpy:
     the reference init's scales — truncated normal over its fan-in
     ``shape[-2]``, embedding rows at scale 1 — with norm weights nonzero
-    (±0.1, so ``1 + weight`` is exercised), the recurrent mixers'
+    (±0.1, so ``1 + weight`` is exercised; MLA's ``q_norm``/``kv_norm``
+    and the MTP head's ``norm`` among them), the recurrent mixers'
     per-channel ``VECTORS`` at their init's values plus noise (``lam``
-    truncated normal at scale 1) and ``wq``/``wk`` further scaled by
-    ``qk_scale``.  Leaves are numpy arrays in the reference's dtypes
-    (norms and ``VECTORS`` float32)."""
+    truncated normal at scale 1) and ``wq``/``wk`` (MLA: ``w_uq``)
+    further scaled by ``qk_scale``.  Leaves are numpy arrays in the reference's dtypes
+    (norms, ``VECTORS`` and the MoE ``router`` float32)."""
     rng = np.random.default_rng(seed)
     dtype = jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32
     arch = next(a for a in jconfigs.ARCH_IDS
@@ -126,9 +131,10 @@ def reference_params(cfg, qk_scale: float = 1.0, seed: int = 0):
             return jnp.asarray(at + scale * x, jnp.float32)
         if name != "embedding":
             x = x / np.sqrt(leaf.shape[-2])
-        if name in ("wq", "wk"):
+        if name in QK:
             x = x * qk_scale
-        return jnp.asarray(x.astype(np.float32), dtype)
+        return jnp.asarray(x.astype(np.float32),
+                           jnp.float32 if name in F32 else dtype)
     return jax.tree_util.tree_map_with_path(draw, _param_shapes(arch))
 
 
@@ -463,15 +469,6 @@ def test_local_window_ring_fault_is_the_reference_s():
             assert min(errs) > 0.5, errs       # off from the first step
         else:
             assert max(errs) < 1e-3, errs
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = tconfigs.load_smoke(arch)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        tbuild(cfg, "cpu")
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
 
 
 def test_convert_checks_names_and_shapes():

@@ -280,10 +280,12 @@ def test_train_steps_match_the_reference(dtype, steps):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_13b",
-                                  "whisper_large_v3"])
+                                  "whisper_large_v3", "deepseek_v2_236b",
+                                  "deepseek_v3_671b"])
 def test_a_train_step_of_each_family_matches_the_reference(arch):
-    """One float32 step through ``train_loop`` for the hybrid, SSM and
-    encoder-decoder families (whisper's batches carry ``audio_feats``)."""
+    """One float32 step through ``train_loop`` for the hybrid, SSM,
+    encoder-decoder and DeepSeek families (whisper's batches carry
+    ``audio_feats``; V3's carry ``labels_mtp`` and its loss ``ce_mtp``)."""
     train_steps_match(arch, "float32", 1)
 
 
@@ -315,7 +317,8 @@ def train_steps_match(arch, dtype, steps):
         params, jstate, jmet = jstep(params, jstate, batch)
         tstate, tmet = tstep(tstate, batch)
         lr_sum += float(jmet["lr"])
-        for k in ("loss", "ce", "grad_norm"):
+        for k in ("loss", "ce", "grad_norm") + (("aux", "ce_mtp")
+                                                 if cfg.mtp_depth else ()):
             assert_close(float(tmet[k]), float(jmet[k]), dtype, k)
         assert float(tmet["lr"]) == pytest.approx(float(jmet["lr"]),
                                                   rel=1e-6)
