@@ -7,7 +7,9 @@
                                # then granite-3.0-2B trained at full width,
                                # then recurrentgemma-2b, mamba2-1.3b,
                                # whisper-large-v3 and deepseek-v2-236b
-                               # (8 of 60 layers) serving and making masks
+                               # (8 of 60 layers) serving and making masks,
+                               # then the dry-run, the MaskSearch mesh
+                               # cells and granite on a (1, 1) mesh
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -147,7 +149,28 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    last, deepseek-v3-671b at full width cut to 4 layers (3 dense + 1 MoE)
    and its multi-token-prediction head (25.79 B parameters): a prefill of
    8 x 128 and one ``loss`` of 4 x 512 tokens with ``labels_mtp`` (``ce``,
-   ``aux``, ``ce_mtp``, ``loss`` finite).
+   ``aux``, ``ce_mtp``, ``loss`` finite);
+14. the mesh (``mesh …`` and ``dryrun …`` lines): ``python -m
+   repro_torch.launch.dryrun`` over every config x shape on the 256- and
+   512-rank meshes (no cost), granite_3_2b/train_4k with its FLOP count
+   and the MaskSearch cells, four processes side by side (no cell may
+   fail; cells over 80 GB a rank are printed); then the dry-run's four
+   MaskSearch cells through ``core/distributed.py``'s steps on a (1,)
+   mesh of ``cuda:0``, one at a time on data drawn on the card:
+   ``verify_64k`` at the reference's 65,536 x 256x256 masks,
+   ``filter_bounds`` and ``topk_bounds`` over 2,097,152 CHI rows (cut from
+   4,194,304: 16,384 masks' tables built with ``chi_cell_hist`` and tiled
+   128x; answers on the first 16,384 rows equal to the host's bounds,
+   counts 128x theirs) and ``iou_agg`` at 65,536 groups (cut from
+   262,144), each timed beside its bytes over 3.35 TB/s, with
+   ``cp_count`` and ``mask_agg_counts`` held against their plain versions
+   at tolerance 0; last, granite-3.0-2B at full width on a (1, 1)
+   ("data", "model") ``DeviceMesh``: greedy decode of 8 x 128 + 8 steps
+   with the cache placed by ``cache_sharding_tree`` (tokens equal to the
+   unsharded decode), phase 11's train step sharded against unsharded
+   (loss within 1e-3 relative), 2 sharded steps (ms, peak GB), and a
+   2-layer float32 cut's updated parameters against the unsharded step's
+   (``params_within_rule``).
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
@@ -3219,6 +3242,462 @@ def deepseek_phase(torch, dev, smi) -> None:
     print(f"deepseek phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- 14. the mesh: the dry-run, the MaskSearch cells, a sharded granite ------
+
+# the MaskSearch cells' cuts on one card (the reference's MS_DB otherwise)
+MESH_CHI_BASE = 16384       # masks whose CHI tables are built, then tiled
+MESH_CHI_TILE = 128         # → 2,097,152 rows, cut from 4,194,304
+MESH_GROUPS = 65536         # IoU groups, cut from 262,144
+MESH_CHUNK = 2048
+MESH_K = 64
+
+
+def blob_masks(torch, gen, n, h, w, dev):
+    """``n`` (h, w) float32 masks in [0, 1): one Gaussian blob each, at a
+    random centre and width, drawn on the card from ``gen``."""
+    c = torch.rand((n, 2, 1, 1), generator=gen, device=dev)
+    s = 0.05 + 0.25 * torch.rand((n, 1, 1), generator=gen, device=dev)
+    y = torch.linspace(0, 1, h, device=dev)[None, :, None]
+    x = torch.linspace(0, 1, w, device=dev)[None, None, :]
+    d2 = (y - c[:, 0]) ** 2 + (x - c[:, 1]) ** 2
+    return (torch.exp(-d2 / (2 * s * s)) * 0.999).to(torch.float32)
+
+
+def random_rois(torch, gen, n, h, w, dev):
+    """(n, 4) int32 ROIs (r0, c0, r1, c1), 16 to 127 pixels a side."""
+    lo = torch.randint(0, h // 2, (n, 2), generator=gen, device=dev)
+    size = torch.randint(16, h // 2, (n, 2), generator=gen, device=dev)
+    hi = torch.minimum(lo + size, torch.tensor([h, w], device=dev))
+    return torch.cat([lo, hi], 1).to(torch.int32)
+
+
+def cell_line(torch, cell, run, cuts, floor, smi):
+    """Time ``run`` (the cell's step) on the card and print it beside the
+    dry-run's memory term for the cell (``roofline.extract.reckon_cost``:
+    the bytes a step reads for a mean ROI, over 3.35 TB/s) and beside
+    ``floor``: (ms, what) of the bytes the step must move for these
+    inputs (their ROI pixels, the corner sectors), with its share."""
+    from repro_torch.roofline.extract import reckon_cost
+    nbytes = reckon_cost(cell).bytes_accessed
+    ms = time_ms(torch, run, reps=3, warmup=1)
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    print(f"mesh cell {cell.shape_id}: {ms:.4f} ms on a (1,) mesh of "
+          f"cuda:0; the dry-run's reckoned bytes {nbytes / 1e9:.3f} GB / "
+          f"3.35 TB/s = {bound:.4f} ms; the bytes these inputs need "
+          f"({floor[1]}) {floor[0]:.4f} ms, {floor[0] / ms:.3f} of that "
+          f"floor; {cuts} ({smi})")
+
+
+def plain_in_parts(torch, k, args, rows) -> float:
+    """Max abs error of kernel ``k``'s call on ``args`` against its plain
+    version on the same inputs, the plain version run ``rows`` rows at a
+    time (row-wise independent; whole, its temporaries would not fit)."""
+    got = k(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    err = 0.0
+    for lo in range(0, args[0].shape[0], rows):
+        part = (args[0][lo:lo + rows], args[1][lo:lo + rows]) + args[2:]
+        want = k.plain(*part)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            err = max(err, max_abs_err(torch, g[lo:lo + rows], w))
+    return err
+
+
+def masksearch_mesh_cells(torch, dev, ops, smi) -> dict:
+    """14b: the dry-run's four MaskSearch cells through the port's
+    ``core/distributed.py`` steps on a (1,) mesh of ``cuda:0``, one cell at
+    a time on data drawn on the card (cut where the reference's size does
+    not fit one card).  Each step runs once in a launch window of its own,
+    then is timed; the kernels' calls are held against their plain
+    versions at tolerance 0 → launches per kernel."""
+    import gc
+    from repro_torch.core import CHIConfig, chi as chi_lib
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import ref
+    from repro_torch.launch.specs import MS_DB, build_masksearch_cells
+
+    mesh = dist.make_mesh((1,), ("data",), [dev])
+    h, w = MS_DB["height"], MS_DB["width"]
+    cfg = CHIConfig(grid=MS_DB["grid"], num_bins=MS_DB["num_bins"],
+                    height=h, width=w)
+    n_rows = MESH_CHI_BASE * MESH_CHI_TILE
+    cells = {c.shape_id: c for c in build_masksearch_cells(
+        mesh, [dev], db=dict(n_masks=n_rows, groups=MESH_GROUPS))}
+    gen = torch.Generator(dev).manual_seed(14)
+    launches = {k: 0 for k in ("cp_count", "mask_agg_counts")}
+
+    def window(fn):
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        for k in launches:
+            launches[k] += got[k]
+        return out, {k: v for k, v in got.items() if v}
+
+    # verify_64k at the reference's size: 65,536 x 256x256 float32
+    v = MS_DB["verify_batch"]
+    masks = torch.rand((v, h, w), generator=gen, device=dev)
+    rois = random_rois(torch, gen, v, h, w, dev)
+    lv, uv = torch.tensor(0.25), torch.tensor(0.75)
+    cell = cells["verify_64k"]
+    counts, got = window(lambda: cell.step_fn(masks, rois, lv, uv))
+    if got.get("cp_count", 0) < 1 or counts.shape != (v,):
+        fail(f"mesh cell verify_64k: launches {got}")
+    err = plain_in_parts(torch, ops.cp_count, (masks, rois, lv, uv), 8192)
+    if err != 0:
+        fail(f"mesh cell verify_64k: cp_count differs from its plain "
+             f"version (max abs err {err})")
+    print(f"mesh parity cp_count (verify_64k): {tuple(masks.shape)} float32 "
+          f"equal to its plain version (max abs err 0; plain run 8,192 rows "
+          f"at a time); launches {got}")
+    cell_line(torch, cell, lambda: cell.step_fn(masks, rois, lv, uv),
+              "no cut: the reference's 65,536 masks (17.18 GB)",
+              (bound_of(torch, ref, "cp_count", (masks, rois))[0],
+               "cp_count's ROI pixels"), smi)
+    del masks, rois, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # filter_bounds and topk_bounds: CHI tables of MESH_CHI_BASE blobs,
+    # built with chi_cell_hist and tiled MESH_CHI_TILE times
+    base = torch.cat([chi_lib.build_chi(blob_masks(
+        torch, gen, MESH_CHUNK, h, w, dev), cfg)
+        for _ in range(MESH_CHI_BASE // MESH_CHUNK)])
+    base_rois = random_rois(torch, gen, MESH_CHI_BASE, h, w, dev)
+    lv, uv = 0.5, 1.0
+    lb, ub = chi_lib.chi_bounds(base.cpu(), cfg, base_rois.cpu().numpy(),
+                                lv, uv)
+    lb, ub = lb.numpy(), ub.numpy()
+    # a threshold inside the nonzero upper bounds splits the rows three
+    # ways: accepted, rejected and undecided
+    thr = int(np.median(ub[ub > 0])) if (ub > 0).any() else 1
+    h_acc = ub < thr
+    h_und = ~(h_acc | (lb >= thr))
+    if h_acc.all() or not h_und.any() or (h_acc | h_und).all():
+        fail(f"mesh cell filter_bounds: threshold {thr} does not split the "
+             f"host's verdicts")
+    tables = base.repeat(MESH_CHI_TILE, 1, 1, 1)
+    rois = base_rois.repeat(MESH_CHI_TILE, 1)
+    del base
+    rb, cb = torch.as_tensor(cfg.row_bounds), torch.as_tensor(cfg.col_bounds)
+    ks = torch.as_tensor(dist.value_ks(cfg, lv, uv))
+    cell = cells["filter_bounds_4m"]
+    (acc, und, counts), got = window(
+        lambda: cell.step_fn(tables, rois, rb, cb, ks, thr))
+    first = slice(0, MESH_CHI_BASE)
+    if not (np.array_equal(acc[first].cpu().numpy(), h_acc) and
+            np.array_equal(und[first].cpu().numpy(), h_und)):
+        fail("mesh cell filter_bounds: verdicts differ from the host's bounds")
+    want = [MESH_CHI_TILE * int(h_acc.sum()), MESH_CHI_TILE * int(h_und.sum())]
+    if counts.cpu().tolist() != want:
+        fail(f"mesh cell filter_bounds: counts {counts.tolist()}, want {want}")
+    print(f"mesh cell filter_bounds: {n_rows:,} rows, threshold {thr}: "
+          f"accept {want[0]:,}, undecided {want[1]:,} ({MESH_CHI_TILE}x the host's "
+          f"bounds on the first {MESH_CHI_BASE:,}, verdicts equal there)")
+    cut = (f"cut: {n_rows:,} of 4,194,304 rows ({tables.numel() * 4 / 1e9:.1f}"
+           f" of 82.4 GB of CHI tables)")
+    # the bounds gather 8 corners for each of lb and ub: 16 int32 a row,
+    # each in a 32-byte sector of its own; the ROIs read, two flags written
+    corners = (n_rows * (16 * 32 + 16 + 2) / PEAK_BYTES_S * 1e3,
+               "16 corner sectors, the ROI and two flags a row")
+    cell_line(torch, cell, lambda: cell.step_fn(tables, rois, rb, cb, ks,
+                                                thr), cut, corners, smi)
+    del acc, und
+    ids = torch.arange(n_rows, dtype=torch.int32, device=dev)
+    cell = cells["topk_bounds_4m"]
+    (_, _, tau, surv), got = window(
+        lambda: cell.step_fn(tables, rois, rb, cb, ks, ids))
+    tau_h = np.sort(np.tile(lb, MESH_CHI_TILE))[::-1][MESH_K - 1]
+    h_surv = ub >= tau_h
+    if int(tau) != int(tau_h) or not np.array_equal(
+            surv[first].cpu().numpy(), h_surv) or \
+            int(surv.sum()) != MESH_CHI_TILE * int(h_surv.sum()):
+        fail("mesh cell topk_bounds: tau or survivors differ from the "
+             "host's bounds")
+    print(f"mesh cell topk_bounds: k {MESH_K}, tau {int(tau)}, "
+          f"{int(surv.sum()):,} survivors ({MESH_CHI_TILE}x the host's "
+          f"{int(h_surv.sum()):,}, equal on the first {MESH_CHI_BASE:,})")
+    cell_line(torch, cell, lambda: cell.step_fn(tables, rois, rb, cb, ks,
+                                                ids), cut, corners, smi)
+    del tables, rois, ids, surv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # iou_agg: MESH_GROUPS groups of 2 x 256x256 float32
+    s = MS_DB["group_size"]
+    gm = torch.empty((MESH_GROUPS, s, h, w), device=dev)
+    for lo in range(0, MESH_GROUPS, MESH_CHUNK):
+        gm[lo:lo + MESH_CHUNK] = torch.rand((MESH_CHUNK, s, h, w),
+                                            generator=gen, device=dev)
+    grois = random_rois(torch, gen, MESH_GROUPS, h, w, dev)
+    t = torch.tensor(0.5)
+    cell = cells["iou_agg_256k"]
+    iou, got = window(lambda: cell.step_fn(gm, grois, t))
+    if got.get("mask_agg_counts", 0) < 1 or not bool(
+            ((iou >= 0) & (iou <= 1)).all()):
+        fail(f"mesh cell iou_agg: launches {got} or IoU outside [0, 1]")
+    err = plain_in_parts(torch, ops.mask_agg_counts, (gm, grois, t), 4096)
+    if err != 0:
+        fail(f"mesh cell iou_agg: mask_agg_counts differs from its plain "
+             f"version (max abs err {err})")
+    print(f"mesh parity mask_agg_counts (iou_agg): {tuple(gm.shape)} float32 "
+          f"equal to its plain version (max abs err 0; plain run 4,096 "
+          f"groups at a time); launches {got}")
+    cell_line(torch, cell, lambda: cell.step_fn(gm, grois, t),
+              f"cut: {MESH_GROUPS:,} of 262,144 groups "
+              f"({gm.numel() * 4 / 1e9:.1f} of 137.4 GB)",
+              (bound_of(torch, ref, "mask_agg_counts", (gm, grois))[0],
+               "mask_agg_counts' ROI pixels"), smi)
+    del gm, grois, iou
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_granite(torch, dev, smi) -> None:
+    """14c-d: granite-3.0-2B at full width on a (1, 1) ("data", "model")
+    DeviceMesh: decode with the cache placed by ``cache_sharding_tree``
+    against the unsharded decode (tokens equal); phase 11's train step
+    sharded against unsharded (loss within 1e-3), 2 sharded steps; a
+    2-layer float32 cut's updated parameters against the unsharded
+    step's (1e-5 of scale, ``params_within_rule``)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import load_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import (make_loss_and_grads,
+                                              make_train_step, replication)
+
+    cfg = load_arch(PRODUCER_ARCH)
+    mesh = make_local_mesh((1, 1), ("data", "model"), "cuda")
+
+    def built(c, seed=0):
+        m = build_model(c, dev).init(torch.Generator(dev).manual_seed(seed))
+        with torch.no_grad():
+            for blk in m.blocks:
+                blk.mixer.wq.mul_(0.125)
+                blk.mixer.wk.mul_(0.125)
+        return m
+
+    # 14c. decode: 8 x 128 prompt, 8 greedy steps
+    model = built(cfg)
+    prompt = torch.as_tensor(SyntheticLMData(cfg, SERVE_PROMPT, SERVE_BATCH)
+                             .batch_at(0)["tokens"], device=dev)
+    steps = 8
+
+    def decode(m, cache, tok):
+        out = []
+        with replication(m):
+            logits, cache = m.prefill({"tokens": tok}, cache)
+            for i in range(steps):
+                nxt = logits[:, -1:].argmax(-1)
+                out.append(nxt.full_tensor() if hasattr(nxt, "full_tensor")
+                           else nxt)
+                logits, cache = m.decode_step(cache, nxt,
+                                              SERVE_PROMPT + i)
+        torch.cuda.synchronize()
+        return torch.cat(out, 1)
+
+    length = SERVE_PROMPT + steps
+    want = decode(model, model.init_cache(SERVE_BATCH, length), prompt)
+    sh.distribute_params(model, mesh, cfg)
+    sh.install_activation_rules(mesh, cfg)
+    cache = sh.distribute_cache(mesh, model.init_cache(SERVE_BATCH, length))
+    spec = sh.cache_spec(mesh, "k", tuple(cache[0]["k"].shape))
+    placements = sh.cache_sharding_tree(mesh, model.init_cache(1, 8))[0]
+    tok = sh.distribute_batch(mesh, {"tokens": prompt}, cfg)["tokens"]
+    t0 = time.perf_counter()
+    got = decode(model, cache, tok)
+    dec_s = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        fail("mesh decode: tokens differ from the unsharded decode")
+    print(f"mesh decode: {cfg.name} at full width on a (1, 1) (data, model) "
+          f"DeviceMesh, params by param_sharding_tree, the cache by "
+          f"cache_sharding_tree (k and v: spec {spec}, on one rank "
+          f"{placements['k']}): prefill {SERVE_BATCH} x "
+          f"{SERVE_PROMPT} + {steps} greedy steps in {dec_s:.3f} s, tokens "
+          f"equal to the unsharded decode ({smi})")
+    sh.clear_activation_rules()
+    del model, cache, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14d. phase 11's train step, unsharded then sharded on the same
+    # weights and batch
+    opt_cfg = OptConfig(warmup_steps=0, total_steps=10)
+    data = SyntheticLMData(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    model = built(cfg)
+    opt = init_opt_state(model.parameters(), opt_cfg)
+    opt, met = make_train_step(model, opt_cfg, microbatches=TRAIN_MICRO)(
+        opt, data.batch_at(0))
+    want = float(met["loss"])
+    del model, opt, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = sh.distribute_params(built(cfg), mesh, cfg)
+    sh.install_activation_rules(mesh, cfg)
+    opt = init_opt_state(model.parameters(), opt_cfg)
+    step = make_train_step(
+        model, opt_cfg, microbatches=TRAIN_MICRO,
+        place_batch=lambda b: sh.distribute_batch(mesh, b, cfg))
+    recs = []
+    for s in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, met = step(opt, data.batch_at(s))
+        loss = float(met["loss"].full_tensor())
+        recs.append((loss, (time.perf_counter() - t0) * 1e3))
+        if not np.isfinite(loss):
+            fail(f"mesh train step {s}: loss {loss}")
+    e = rel_err(recs[0][0], want)
+    if e > 1e-3:
+        fail(f"mesh train: sharded loss {recs[0][0]} vs unsharded {want} "
+             f"(rel err {e})")
+    print(f"mesh train: {cfg.name} at full width on the (1, 1) mesh, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
+          f"microbatches: step 0 loss {recs[0][0]:.6f} vs unsharded "
+          f"{want:.6f} (rel err {e:.3e}, limit 1e-3); "
+          + "; ".join(f"step {i} {ms:.3f} ms" for i, (_, ms) in
+                      enumerate(recs))
+          + f"; peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"({smi})")
+    sh.clear_activation_rules()
+    del model, opt, step, met
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the 2-layer float32 cut: the updated parameters
+    cut = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    data = SyntheticLMData(cut, 64, 4, seed=3)
+    batch = data.batch_at(0)
+    ref_m = built(cut, 1)
+    _, _, grads = make_loss_and_grads(ref_m, 2)(batch)
+    noisy = [(g.abs() <= 1e-5 * max(1.0, float(g.abs().max()))).cpu()
+             for g in grads]
+    del grads
+    _, met = make_train_step(ref_m, opt_cfg, microbatches=2)(
+        init_opt_state(ref_m.parameters(), opt_cfg), batch)
+    m = sh.distribute_params(built(cut, 1), mesh, cut)
+    sh.install_activation_rules(mesh, cut)
+    _, met2 = make_train_step(
+        m, opt_cfg, microbatches=2,
+        place_batch=lambda b: sh.distribute_batch(mesh, b, cut))(
+        init_opt_state(m.parameters(), opt_cfg), batch)
+    sh.clear_activation_rules()
+    got = [(n, p.full_tensor()) for n, p in m.named_parameters()]
+    worst, inside = params_within_rule(torch, got, list(ref_m.parameters()),
+                                       noisy, float(met["lr"]))
+    e = rel_err(float(met2["loss"].full_tensor()), float(met["loss"]))
+    print(f"mesh train check: 2-layer float32 cut at full width, one step "
+          f"of 2 x 2 x 64 tokens sharded vs unsharded: loss rel err "
+          f"{e:.3e}; params within 1e-5 of scale (max err {worst:.3e}; "
+          f"where grads are under the noise {inside:.3e}) ({smi})")
+
+
+def dryrun_cells() -> None:
+    """14a: ``python -m repro_torch.launch.dryrun`` for every cell on both
+    meshes (no cost), granite_3_2b/train_4k with cost and the MaskSearch
+    cells, four processes side by side: no cell may fail; cells over
+    80 GB a rank are printed, as the reference records them."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=SRC)
+    with tempfile.TemporaryDirectory() as out:
+        runs = {"single": ["--all", "--mesh", "single", "--no-cost"],
+                "multi": ["--all", "--mesh", "multi", "--no-cost"],
+                "granite": ["--arch", "granite_3_2b", "--shape", "train_4k",
+                            "--mesh", "single"],
+                "masksearch": ["--masksearch", "--mesh", "single"]}
+        # the four runs side by side, each into a directory of its own
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", os.path.join(out, k)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k, args in runs.items()}
+        try:
+            for k, p in procs.items():
+                _, err = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    fail(f"dryrun {' '.join(runs[k])}: exit {p.returncode}: "
+                         f"{err[-2000:]}")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        print(f"dryrun: {len(runs)} runs side by side in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              + "; ".join(" ".join(a) for a in runs.values()))
+        for mesh_kind in ("single", "multi"):
+            where = os.path.join(out, mesh_kind, mesh_kind)
+            status = {}
+            for name in sorted(os.listdir(where)):
+                with open(os.path.join(where, name)) as f:
+                    r = json.load(f)
+                status[r["status"]] = status.get(r["status"], 0) + 1
+                if r["status"] == "failed":
+                    fail(f"dryrun {mesh_kind} {r['arch']}/{r['shape']}: "
+                         f"{r.get('error')}")
+                if r["status"] == "ok" and not r.get("fits_80g", True):
+                    print(f"dryrun {mesh_kind} {r['arch']}/{r['shape']}: "
+                          f"{r['memory']['peak_estimate_bytes'] / 1e9:.2f} "
+                          f"GB a rank, over 80 GB (recorded, as the "
+                          f"reference records it)")
+            print(f"dryrun {mesh_kind}: cells by status {status}")
+        where = os.path.join(out, "masksearch", "single")
+        for name in sorted(os.listdir(where)):
+            with open(os.path.join(where, name)) as f:
+                r = json.load(f)
+            if r["status"] != "ok":
+                fail(f"dryrun masksearch {r['shape']}: {r.get('error')}")
+        print(f"dryrun masksearch single: {len(os.listdir(where))} cells ok")
+        with open(os.path.join(out, "granite", "single",
+                               "granite_3_2b__train_4k.json")) as f:
+            r = json.load(f)
+        roof = r["roofline"]
+        print(f"dryrun granite_3_2b/train_4k single: counted "
+              f"{roof['hlo_flops_global']:.4e} FLOPs on 256 ranks, "
+              f"{roof['hlo_flops_global'] / r['model_flops']:.3f}x 6ND; "
+              f"compute {roof['compute_s'] * 1e3:.3f} ms, memory "
+              f"{roof['memory_s'] * 1e3:.3f} ms, collective "
+              f"{roof['collective_s'] * 1e3:.3f} ms a rank (reckoned on "
+              f"the H100's constants, not measured)")
+
+
+
+def mesh_phase14(torch, dev, ops, smi) -> dict:
+    """Phase 14: the dry-run in subprocesses (14a), the MaskSearch cells on
+    one card (14b), granite sharded on a (1, 1) mesh (14c-d).  Returns the
+    MaskSearch cells' kernel launches."""
+    import gc
+    import tempfile
+    import torch.distributed as tdist
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dryrun_cells()
+    launches = masksearch_mesh_cells(torch, dev, ops, smi)
+    print(f"mesh launches (MaskSearch cells): {launches}")
+    torch.cuda.set_device(dev.index or 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group(
+            "nccl", store=tdist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            sharded_granite(torch, dev, smi)
+        finally:
+            tdist.destroy_process_group()
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3383,6 +3862,10 @@ def main() -> int:
     # expert-utilisation masks, indexes and queries them; deepseek-v3's
     # MTP head ----------------------------------------------------------------
     deepseek_phase(torch, dev, smi)
+
+    # -- 14. the mesh: the dry-run, the MaskSearch cells on one card, and
+    # granite's sharded train step and decode --------------------------------
+    mesh_phase14(torch, dev, ops, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Command-line entry points of the port: serving and training."""
+"""Command-line entry points of the port: serving, training and the
+mesh dry-run."""

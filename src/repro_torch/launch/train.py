@@ -14,17 +14,36 @@ master weights, ``--microbatches`` of gradient accumulation:
     committed step);
   * SIGTERM → checkpoint-and-exit (preemption guard).
 
-The port trains on one device: ``--production-mesh`` is refused until the
-launcher's mesh is ported (ROADMAP §1 item 3), and with several visible
-cards it trains on ``--device`` and says so.
+Meshes (the reference's ``make_production_mesh`` / ``make_local_mesh``)
+need one process per rank: the default process group, made by the
+caller or from ``torchrun``'s environment (``WORLD_SIZE`` > 1; NCCL on
+the cards, gloo on the CPU).
+
+  * ``--production-mesh`` trains on the 16×16 ("data", "model") mesh and
+    exits, naming the ranks it needs and found, on any other world size.
+  * With more than one rank, it trains on ``make_local_mesh()`` (every
+    rank on "data"): the parameters become DTensors under
+    ``param_sharding_tree``'s placements, the activation rules are
+    installed, each microbatch is placed by ``batch_sharding_tree``, and
+    the microbatched step is the one-device step.  The plan is the
+    config's (``sharding.rules_for``: pure DP for a ``prefer_pure_dp``
+    config on a mesh without "pod"), as the dry-run reckons it; the
+    reference's launcher passes no config and so always takes the TP
+    plan.  Each rank takes card
+    ``LOCAL_RANK``.  Checkpoints are written from one device only:
+    ``--ckpt-dir`` with a mesh is refused.
+  * With one rank it trains on ``--device``, as before.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..configs import ARCH_IDS, load_arch, load_smoke
 from ..data.pipeline import SyntheticLMData
@@ -33,6 +52,8 @@ from ..train import checkpoint as ckpt
 from ..train.fault import PreemptionGuard
 from ..train.optimizer import OptConfig, init_opt_state
 from ..train.train_loop import init_train_state, make_train_step
+from . import sharding as sh
+from .mesh import make_local_mesh, make_production_mesh
 
 
 def parse_args(argv=None):
@@ -53,6 +74,21 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _world(dev: torch.device) -> tuple:
+    """(world size, whether this call made the process group): the
+    caller's group, or torchrun's from the environment, or none (1)."""
+    if dist.is_initialized():
+        return dist.get_world_size(), False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        return dist.get_world_size(), True
+    return 1, False
+
+
+def _value(x) -> float:
+    return float(x.full_tensor() if isinstance(x, DTensor) else x)
+
+
 def run(argv=None, model=None) -> dict:
     """``main``'s work → ``{"model", "opt_state", "opt_cfg", "records"}``:
     the trained model and optimizer state, and one record per step run
@@ -64,14 +100,33 @@ def run(argv=None, model=None) -> dict:
     config ``--arch``/``--smoke`` name, on ``--device``) in place of the
     random init from generator seed 0."""
     args = parse_args(argv)
-    if args.production_mesh:
-        raise SystemExit("--production-mesh: the launcher's mesh is not "
-                         "ported to PyTorch yet (ROADMAP §1 item 3); the "
-                         "port trains on one --device")
     dev = torch.device(args.device)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"{torch.cuda.device_count()} cards visible; training on "
-              f"{dev} alone (no mesh in the port yet)")
+    world, made_group = _world(dev)
+    try:
+        return _run(args, dev, world, model)
+    finally:
+        sh.clear_activation_rules()
+        if made_group:
+            dist.destroy_process_group()
+
+
+def _run(args, dev, world, model) -> dict:
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh(device_type=dev.type)
+    elif world > 1:
+        mesh = make_local_mesh(device_type=dev.type)
+    elif dev.type == "cuda" and torch.cuda.device_count() > 1:
+        print(f"{torch.cuda.device_count()} cards visible, one rank: "
+              f"training on {dev} alone (run one rank per card, e.g. "
+              f"under torchrun, to train on a mesh)")
+    if mesh is not None:
+        if args.ckpt_dir:
+            raise SystemExit("--ckpt-dir: checkpoints are written from one "
+                             "device; train on a mesh without it")
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
 
     cfg = load_smoke(args.arch) if args.smoke else load_arch(args.arch)
     opt_cfg = OptConfig(learning_rate=args.lr, warmup_steps=args.steps // 10,
@@ -85,7 +140,16 @@ def run(argv=None, model=None) -> dict:
                          f"the arguments name {cfg.name} on {dev}")
     else:
         opt_state = init_opt_state(model.parameters(), opt_cfg)
-    step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches)
+    place = None
+    if mesh is not None:
+        sh.distribute_params(model, mesh, cfg)
+        opt_state = init_opt_state(model.parameters(), opt_cfg)
+        sh.install_activation_rules(mesh, cfg)
+
+        def place(batch):
+            return sh.distribute_batch(mesh, batch, cfg)
+    step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches,
+                              place_batch=place)
     data = SyntheticLMData(cfg, args.seq_len, args.global_batch)
     tokens = args.seq_len * args.global_batch
     guard = PreemptionGuard()
@@ -104,9 +168,9 @@ def run(argv=None, model=None) -> dict:
         for s in range(start, args.steps):
             t0 = time.perf_counter()
             opt_state, metrics = step_fn(opt_state, data.batch_at(s))
-            rec = {"step": s, "loss": float(metrics["loss"]),
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "lr": float(metrics["lr"]),
+            rec = {"step": s, "loss": _value(metrics["loss"]),
+                   "grad_norm": _value(metrics["grad_norm"]),
+                   "lr": _value(metrics["lr"]),
                    "step_s": time.perf_counter() - t0,
                    "opt_s": metrics["opt_s"], "tokens": tokens}
             if dev.type == "cuda":

@@ -24,34 +24,36 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .layers import NEG_INF, apply_rope, init_rms, param, rms_norm
+from .layers import (NEG_INF, apply_rope, empty, init_rms, redraw, rms_norm,
+                     merge_dims, shard_act, split_dim, write_seq)
 
 
 class Attention(torch.nn.Module):
-    """One GQA layer's weights, under the reference's parameter names:
-    ``wq`` (D, Hq, hd), ``wk``/``wv`` (D, Hkv, hd), ``wo`` (Hq, hd, D),
-    and with qk-norm ``q_norm``/``k_norm`` (hd,)."""
+    """One GQA layer's weights, under the reference's parameter names and
+    logical axes: ``wq`` (D, Hq, hd), ``wk``/``wv`` (D, Hkv, hd), ``wo``
+    (Hq, hd, D), and with qk-norm ``q_norm``/``k_norm`` (hd,)."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
         d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                           cfg.head_dim)
-        empty = dict(dtype=dtype, device=device)
-        self.wq = torch.nn.Parameter(torch.empty((d, hq, hd), **empty))
-        self.wk = torch.nn.Parameter(torch.empty((d, hkv, hd), **empty))
-        self.wv = torch.nn.Parameter(torch.empty((d, hkv, hd), **empty))
-        self.wo = torch.nn.Parameter(torch.empty((hq, hd, d), **empty))
+        self.wq = empty((d, hq, hd), ("embed", "q_heads", "head_dim"), dtype,
+                        device)
+        self.wk = empty((d, hkv, hd), ("embed", "kv_heads", "head_dim"),
+                        dtype, device)
+        self.wv = empty((d, hkv, hd), ("embed", "kv_heads", "head_dim"),
+                        dtype, device)
+        self.wo = empty((hq, hd, d), ("q_heads", "head_dim", "embed"), dtype,
+                        device)
         if cfg.qk_norm:
-            self.q_norm = init_rms(hd, device)
-            self.k_norm = init_rms(hd, device)
+            self.q_norm = init_rms(hd, device, ("head_dim",))
+            self.k_norm = init_rms(hd, device, ("head_dim",))
 
     def init(self, generator) -> None:
         """Truncated-normal fan-in init of the projections (the norms stay
         zero: identity)."""
         for name in ("wq", "wk", "wv", "wo"):
-            w = getattr(self, name)
-            setattr(self, name, param(generator, tuple(w.shape),
-                                      dtype=w.dtype, device=w.device))
+            setattr(self, name, redraw(generator, getattr(self, name)))
 
 
 def init_attention(generator, cfg, dtype, device) -> Attention:
@@ -68,14 +70,12 @@ def _theta(cfg, kind: str) -> float:
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matmul."""
-    d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return split_dim(x @ merge_dims(w, 1), -1, tuple(w.shape[1:]))
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshd,hdo->bso")`` as one matmul."""
-    h, d, dm = wo.shape
-    return o.flatten(-2) @ wo.reshape(h * d, dm)
+    return merge_dims(o, -2) @ merge_dims(wo, 0)
 
 
 def _qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -88,13 +88,17 @@ def _qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
         theta = _theta(cfg, kind)
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
+    q = shard_act(q, ("batch", "seq", "q_heads", None))
+    k = shard_act(k, ("batch", "seq", "kv_heads", None))
+    v = shard_act(v, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 
 def repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     if groups == 1:
         return k
-    return torch.repeat_interleave(k, groups, dim=2)
+    return shard_act(torch.repeat_interleave(k, groups, dim=2),
+                     ("batch", "kv_seq", "heads", None))
 
 
 def sqrt_f32(d: int) -> float:
@@ -125,7 +129,7 @@ def _pv(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _block_attend(qb, k, v, q_pos, k_pos, causal: bool, window: int):
     """One query block against a key slice.  qb: (B,bq,H,D), k/v:
     (B,T,H,D), q_pos: (bq,), k_pos: (T,).  Full heads (already repeated)."""
-    scores = _scores(qb, k)
+    scores = shard_act(_scores(qb, k), ("batch", "heads", None, "kv_seq"))
     mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
                       device=qb.device)
     if causal:
@@ -167,7 +171,8 @@ def _sdpa(q, k, v, cfg, *, causal: bool, window: int, offset: int = 0):
         else:
             kb, vb, k_pos = k, v, k_pos_all
         outs.append(_block_attend(qb, kb, vb, q_pos, k_pos, causal, window))
-    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return shard_act(out, ("batch", "seq", "heads", None))
 
 
 def attention(p: Attention, cfg, x, positions, kind: str = "global"):
@@ -214,8 +219,8 @@ def prefill_attention(p: Attention, cfg, x, positions, kind, cache):
     out = _sdpa(q, k, v, cfg, causal=True, window=window)
     length = cache["k"].shape[1]
     if length >= s:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        write_seq(cache["k"], 0, k)
+        write_seq(cache["v"], 0, v)
     else:  # ring for local windows shorter than the prompt
         cache["k"], cache["v"] = k[:, -length:], v[:, -length:]
     return _out(out, p.wo), cache
@@ -235,8 +240,8 @@ def decode_attention(p: Attention, cfg, x, pos: int, kind: str, cache):
     window = cfg.local_window if (kind == "local" and cfg.local_window) else 0
     slot = (pos % length) if window else min(pos, length - 1)
     k, v = cache["k"], cache["v"]
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
+    write_seq(k, slot, k_new)
+    write_seq(v, slot, v_new)
     hq, hkv = q.shape[2], k.shape[2]
     kf = repeat_kv(k, hq // hkv)
     vf = repeat_kv(v, hq // hkv)
@@ -245,7 +250,8 @@ def decode_attention(p: Attention, cfg, x, pos: int, kind: str, cache):
         valid = (slot - idx) % length < min(pos + 1, window)
     else:
         valid = idx <= pos
-    scores = _scores(q, kf).masked_fill(~valid, NEG_INF)
+    scores = shard_act(_scores(q, kf), ("batch", "heads", None, "kv_seq"))
+    scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(vf.dtype)
     return _out(_pv(probs, vf), p.wo), cache
 
@@ -276,7 +282,10 @@ def init_cross_attention(generator, cfg, dtype, device) -> Attention:
 
 def cross_kv(p: Attention, enc_out):
     """The encoder states' keys and values, ``{"k", "v"}`` (B,T,Hkv,hd)."""
-    return {"k": _proj(enc_out, p.wk), "v": _proj(enc_out, p.wv)}
+    return {"k": shard_act(_proj(enc_out, p.wk),
+                           ("batch", "kv_seq", "kv_heads", None)),
+            "v": shard_act(_proj(enc_out, p.wv),
+                           ("batch", "kv_seq", "kv_heads", None))}
 
 
 def cross_attention(p: Attention, cfg, x, kv):

@@ -23,15 +23,14 @@ from __future__ import annotations
 import torch
 
 from . import attention as attn
-from .layers import (DTYPES, Params, cross_entropy, embed, gelu_mlp,
-                     init_rms, logits_from_tied, param, remat_call, rms_norm,
-                     sinusoidal_positions)
+from .layers import (DTYPES, Params, cross_entropy, embed, empty, gelu_mlp,
+                     init_rms, logits_from_tied, mlp_spec, redraw, remat_call,
+                     rms_norm, shard_act, sinusoidal_positions)
 
 
 def _mlp(cfg, dtype, device) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
-    return Params({"up": ((d, f), dtype, "fan_in"),
-                   "down": ((f, d), dtype, "fan_in")}, device)
+    return Params(mlp_spec(cfg.d_model, cfg.d_ff, dtype, ("up", "down")),
+                  device)
 
 
 class EncBlock(torch.nn.Module):
@@ -53,7 +52,8 @@ class EncBlock(torch.nn.Module):
         cfg = self.cfg
         x = x + attn.bidirectional_attention(
             self.attn, cfg, rms_norm(x, self.ln1, cfg.norm_eps), positions)
-        return x + gelu_mlp(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps))
+        x = x + gelu_mlp(self.mlp, rms_norm(x, self.ln2, cfg.norm_eps))
+        return shard_act(x, ("batch", "seq", "embed"))
 
 
 class DecBlock(torch.nn.Module):
@@ -91,7 +91,8 @@ class DecBlock(torch.nn.Module):
         x = x + attn.attention(self.self_attn, cfg,
                                rms_norm(x, self.ln1, cfg.norm_eps),
                                positions, "global")
-        return self._rest(x, attn.cross_kv(self.cross, enc_out))
+        x = self._rest(x, attn.cross_kv(self.cross, enc_out))
+        return shard_act(x, ("batch", "seq", "embed"))
 
     def prefill(self, x, positions, enc_out, cache):
         cfg = self.cfg
@@ -122,9 +123,8 @@ class EncDecLM(torch.nn.Module):
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
         self.device = torch.device(device)
-        self.embedding = torch.nn.Parameter(torch.empty(
-            (cfg.padded_vocab, cfg.d_model), dtype=self.dtype,
-            device=self.device))
+        self.embedding = empty((cfg.padded_vocab, cfg.d_model),
+                               ("vocab", "embed"), self.dtype, self.device)
         self.enc = torch.nn.ModuleList(
             EncBlock(cfg, self.dtype, self.device)
             for _ in range(cfg.enc_layers))
@@ -140,9 +140,7 @@ class EncDecLM(torch.nn.Module):
         """Random init from ``generator`` (on the model's device):
         embedding rows at scale 1, projections at fan-in scale, norms
         zero.  Returns the model."""
-        self.embedding = param(generator, tuple(self.embedding.shape),
-                               dtype=self.dtype, device=self.device,
-                               scale=1.0)
+        self.embedding = redraw(generator, self.embedding, scale=1.0)
         for blk in (*self.enc, *self.dec):
             blk.init(generator)
         return self

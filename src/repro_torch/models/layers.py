@@ -10,14 +10,23 @@ outputs in the compute dtype.  Scalars that the reference folds into a
 bf16 product (``1 + weight``, the embedding scale) are rounded to the
 compute dtype first, as JAX's weak typing does.
 
-Logical sharding axes (``param``'s ``axes``, ``shard_act``,
-``set_activation_rule``) exist only for the JAX launcher's mesh and have
-no counterpart here.
+Every parameter carries the reference's *logical* sharding axes as
+``.axes`` (a tuple, one name or ``None`` per dim: ``param``'s ``axes``,
+the fourth field of a ``Params`` spec, ``init_rms``'s ``axes``); the
+launcher maps them onto a mesh (``launch/sharding.py``), so models never
+name a mesh axis.  :func:`shard_act` annotates an activation with its
+logical axes; it is the identity unless the launcher installs a rule
+(:func:`set_activation_rule`).  The few ops whose plain form a sharded
+tensor refuses (:func:`mesh_op`: cache writes, head splits, the LM
+head's pad fill) are plain here; the launcher installs its mesh's
+versions with the rule, so no model code knows of a mesh.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,9 +46,36 @@ def remat_call(cfg, blk, *args):
     return blk(*args)
 
 
-def param(generator: torch.Generator, shape, *, dtype=torch.float32,
-          device="cuda", scale: float | str = "fan_in") -> torch.nn.Parameter:
-    """A parameter with truncated-normal init (or zeros/ones).
+def with_axes(p: torch.nn.Parameter, axes) -> torch.nn.Parameter:
+    """``p`` with its logical axes recorded as ``p.axes``."""
+    if axes is not None:
+        axes = tuple(axes)
+        if len(axes) != p.dim():
+            raise ValueError(f"axes {axes} for a {p.dim()}-d parameter")
+        p.axes = axes
+    return p
+
+
+def axes_of(p: torch.Tensor, name: str = "") -> tuple:
+    """A parameter's logical axes (every parameter of the zoo has them)."""
+    axes = getattr(p, "axes", None)
+    if axes is None:
+        raise ValueError(f"parameter {name or tuple(p.shape)} has no "
+                         f"logical axes")
+    return axes
+
+
+def empty(shape, axes, dtype, device) -> torch.nn.Parameter:
+    """An uninitialised parameter with its logical axes."""
+    return with_axes(torch.nn.Parameter(torch.empty(
+        shape, dtype=dtype, device=device)), axes)
+
+
+def param(generator: torch.Generator, shape, axes=None, *,
+          dtype=torch.float32, device="cuda",
+          scale: float | str = "fan_in") -> torch.nn.Parameter:
+    """A parameter with truncated-normal init (or zeros/ones), carrying
+    the logical ``axes`` when given.
 
     Drawn in f32 on ``device`` from ``generator`` (a generator on that
     device), scaled, then cast to ``dtype``: the reference's ``param``.
@@ -56,7 +92,14 @@ def param(generator: torch.Generator, shape, *, dtype=torch.float32,
         torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
         v = v.mul_(scale).to(dtype)
-    return torch.nn.Parameter(v)
+    return with_axes(torch.nn.Parameter(v), axes)
+
+
+def redraw(generator, w: torch.nn.Parameter,
+           scale: float | str = "fan_in") -> torch.nn.Parameter:
+    """A fresh :func:`param` of ``w``'s shape, dtype, device and axes."""
+    return param(generator, tuple(w.shape), getattr(w, "axes", None),
+                 dtype=w.dtype, device=w.device, scale=scale)
 
 
 def count_params(module: torch.nn.Module) -> int:
@@ -66,10 +109,11 @@ def count_params(module: torch.nn.Module) -> int:
 class Params(torch.nn.Module):
     """A mixer's parameters under the reference's names, read as
     ``p["name"]`` like the reference's dict: ``spec`` maps each name to
-    ``(shape, dtype, scale)``, ``scale`` as :func:`param` takes it, or to
-    a nested spec (a sub-dict of the reference's, e.g. the MoE's
-    ``shared`` expert), which becomes a child ``Params``.  Construction
-    allocates them uninitialised; :meth:`init` draws them."""
+    ``(shape, dtype, scale, axes)``, ``scale`` as :func:`param` takes it
+    and ``axes`` the reference's logical axes, or to a nested spec (a
+    sub-dict of the reference's, e.g. the MoE's ``shared`` expert), which
+    becomes a child ``Params``.  Construction allocates them
+    uninitialised; :meth:`init` draws them."""
 
     def __init__(self, spec: dict, device):
         super().__init__()
@@ -79,21 +123,81 @@ class Params(torch.nn.Module):
             if isinstance(s, dict):
                 self.add_module(name, Params(s, device))
             else:
-                shape, dtype, _ = s
-                self.register_parameter(name, torch.nn.Parameter(
-                    torch.empty(shape, dtype=dtype, device=device)))
+                shape, dtype, _, axes = s
+                self.register_parameter(name, empty(shape, axes, dtype,
+                                                    device))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
     def init(self, generator) -> None:
         for name, scale in self.scales.items():
-            w = getattr(self, name)
-            setattr(self, name, param(generator, tuple(w.shape),
-                                      dtype=w.dtype, device=w.device,
-                                      scale=scale))
+            setattr(self, name, redraw(generator, getattr(self, name),
+                                       scale))
         for child in self.children():
             child.init(generator)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding constraints and the ops a mesh changes (logical →
+# physical happens in launch/)
+# ---------------------------------------------------------------------------
+
+_ACT_RULE: Callable | None = None
+_MESH_OPS: dict = {}
+
+
+def set_activation_rule(fn, **ops) -> None:
+    """Install the logical→physical activation-sharding hook (launcher
+    only), and with it a mesh's own versions of the :func:`mesh_op`
+    functions below, by name; ``None`` removes them all."""
+    global _ACT_RULE, _MESH_OPS
+    _ACT_RULE = fn
+    _MESH_OPS = dict(ops) if fn is not None else {}
+
+
+def shard_act(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """Annotate an activation with logical axes (no-op without a launcher)."""
+    if _ACT_RULE is None:
+        return x
+    return _ACT_RULE(x, axes)
+
+
+def mesh_op(fn):
+    """``fn``, the op on plain tensors, unless the launcher installed a
+    mesh's version under its name (:func:`set_activation_rule`)."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def call(*args):
+        return _MESH_OPS.get(name, fn)(*args)
+    return call
+
+
+@mesh_op
+def write_seq(dst: torch.Tensor, start: int, src: torch.Tensor) -> None:
+    """``dst[:, start:start + n] = src`` in place (a cache write along the
+    sequence dim)."""
+    dst[:, start:start + src.shape[1]] = src
+
+
+@mesh_op
+def split_dim(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``."""
+    return x.unflatten(dim, sizes)
+
+
+@mesh_op
+def merge_dims(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.flatten(dim, dim + 1)``."""
+    return x.flatten(dim, dim + 1)
+
+
+@mesh_op
+def fill_from(x: torch.Tensor, start: int, value: float) -> torch.Tensor:
+    """``x`` with ``x[..., start:] = value`` (in place)."""
+    x[..., start:] = value
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -137,10 +241,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return _RMSNorm.apply(x, weight, eps)
 
 
-def init_rms(dim: int, device) -> torch.nn.Parameter:
+def init_rms(dim: int, device, axes=("embed",)) -> torch.nn.Parameter:
     """(weight − 1) storage, zeros → identity norm (f32, as the reference)."""
-    return torch.nn.Parameter(torch.zeros(dim, dtype=torch.float32,
-                                          device=device))
+    return with_axes(torch.nn.Parameter(torch.zeros(
+        dim, dtype=torch.float32, device=device)), axes)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -197,12 +301,26 @@ def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def mlp_spec(d_model: int, d_ff: int, dtype, names=("gate", "up",
+                                                     "down")) -> dict:
+    """A SwiGLU (``gate``/``up``/``down``) or GELU (``up``/``down``) MLP's
+    ``Params`` spec, fan-in init, under the reference's logical axes."""
+    shapes = {"gate": ((d_model, d_ff), ("embed", "mlp")),
+              "up": ((d_model, d_ff), ("embed", "mlp")),
+              "down": ((d_ff, d_model), ("mlp", "embed"))}
+    return {n: (shapes[n][0], dtype, "fan_in", shapes[n][1]) for n in names}
+
+
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
-    return (silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    h = silu(x @ p["gate"]) * (x @ p["up"])
+    h = shard_act(h, ("batch", "seq", "mlp"))
+    return h @ p["down"]
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return gelu(x @ p["up"]) @ p["down"]
+    h = gelu(x @ p["up"])
+    h = shard_act(h, ("batch", "seq", "mlp"))
+    return h @ p["down"]
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +329,7 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(p_emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return p_emb[tokens]
+    return shard_act(p_emb[tokens], ("batch", "seq", "embed"))
 
 
 def logits_from_tied(p_emb: torch.Tensor, h: torch.Tensor,
@@ -220,9 +338,9 @@ def logits_from_tied(p_emb: torch.Tensor, h: torch.Tensor,
     Columns ≥ ``valid_vocab`` (the padding that made the vocab
     16-divisible) are set to −2.0e38 in the logits' dtype, so softmax and
     argmax never pick them."""
-    out = h @ p_emb.T
+    out = shard_act(h @ p_emb.T, ("batch", "seq", "vocab"))
     if valid_vocab and valid_vocab < p_emb.shape[0]:
-        out[..., valid_vocab:] = NEG_INF
+        out = fill_from(out, valid_vocab, NEG_INF)
     return out
 
 

@@ -30,24 +30,27 @@ import numpy as np
 import torch
 
 from .attention import _out, _pick_block, _proj, sqrt_f32
-from .layers import NEG_INF, Params, apply_rope, rms_norm
+from .layers import NEG_INF, Params, apply_rope, rms_norm, shard_act, write_seq
 
 
 def mla_spec(cfg, dtype) -> dict:
-    """name → (shape, dtype, init scale), the reference's ``init_mla``
-    (``q_norm``/``kv_norm`` are float32 RMS weights, zero = identity)."""
+    """name → (shape, dtype, init scale, logical axes), the reference's
+    ``init_mla`` (``q_norm``/``kv_norm`` are float32 RMS weights, zero =
+    identity)."""
     d, h = cfg.d_model, cfg.num_heads
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "w_dq": ((d, qr), dtype, "fan_in"),
-        "q_norm": ((qr,), torch.float32, "zeros"),
-        "w_uq": ((qr, h, nd + rd), dtype, "fan_in"),
-        "w_dkv": ((d, kvr), dtype, "fan_in"),
-        "kv_norm": ((kvr,), torch.float32, "zeros"),
-        "w_kpe": ((d, rd), dtype, "fan_in"),
-        "w_ukv": ((kvr, h, nd + vd), dtype, "fan_in"),
-        "w_o": ((h, vd, d), dtype, "fan_in"),
+        "w_dq": ((d, qr), dtype, "fan_in", ("embed", "q_lora")),
+        "q_norm": ((qr,), torch.float32, "zeros", ("q_lora",)),
+        "w_uq": ((qr, h, nd + rd), dtype, "fan_in",
+                 ("q_lora", "q_heads", "head_dim")),
+        "w_dkv": ((d, kvr), dtype, "fan_in", ("embed", "kv_lora")),
+        "kv_norm": ((kvr,), torch.float32, "zeros", ("kv_lora",)),
+        "w_kpe": ((d, rd), dtype, "fan_in", ("embed", "head_dim")),
+        "w_ukv": ((kvr, h, nd + vd), dtype, "fan_in",
+                  ("kv_lora", "q_heads", "head_dim")),
+        "w_o": ((h, vd, d), dtype, "fan_in", ("q_heads", "head_dim", "embed")),
     }
 
 
@@ -62,14 +65,17 @@ def _queries(p, cfg, x, positions):
     cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
     q = _proj(cq, p["w_uq"])
     q_nope, q_pe = q[..., :nd], q[..., nd:]
-    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    return shard_act(q_nope, ("batch", "seq", "q_heads", None)), \
+        shard_act(q_pe, ("batch", "seq", "q_heads", None))
 
 
 def _latents(p, cfg, x, positions):
     ckv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
     k_pe = apply_rope((x @ p["w_kpe"])[:, :, None, :], positions,
                       cfg.rope_theta)[:, :, 0]
-    return ckv, k_pe
+    return (shard_act(ckv, ("batch", "seq", None)),
+            shard_act(k_pe, ("batch", "seq", None)))
 
 
 def _attend(p, cfg, x, positions, ckv, k_pe):
@@ -79,6 +85,8 @@ def _attend(p, cfg, x, positions, ckv, k_pe):
     q_nope, q_pe = _queries(p, cfg, x, positions)
     kv = _proj(ckv, p["w_ukv"])
     k_nope, v = kv[..., :nd], kv[..., nd:]
+    k_nope = shard_act(k_nope, ("batch", "kv_seq", "q_heads", None))
+    v = shard_act(v, ("batch", "kv_seq", "q_heads", None))
     kt = k_nope.permute(0, 2, 3, 1)                        # (B, H, nd, T)
     pt = k_pe.transpose(1, 2)[:, None]                     # (B, 1, rd, T)
     vt = v.transpose(1, 2)                                 # (B, H, T, vd)
@@ -92,7 +100,8 @@ def _attend(p, cfg, x, positions, ckv, k_pe):
         qn = q_nope[:, qs:qs + bq].transpose(1, 2)         # (B, H, bq, nd)
         qp = q_pe[:, qs:qs + bq].transpose(1, 2)
         scores = (torch.matmul(qn, kt) + torch.matmul(qp, pt)).float()
-        scores = scores * scale
+        scores = shard_act(scores * scale,
+                           ("batch", "q_heads", None, "kv_seq"))
         q_pos = torch.arange(qs, qs + bq, device=x.device)
         causal = k_pos[None, :] <= q_pos[:, None]
         scores = scores.masked_fill(~causal, NEG_INF)
@@ -123,9 +132,8 @@ def mla_prefill(p, cfg, x, positions, cache):
     0..S−1 (in place)."""
     ckv, k_pe = _latents(p, cfg, x, positions)
     out = _attend(p, cfg, x, positions, ckv, k_pe)
-    s = x.shape[1]
-    cache["ckv"][:, :s] = ckv
-    cache["kpe"][:, :s] = k_pe
+    write_seq(cache["ckv"], 0, ckv)
+    write_seq(cache["kpe"], 0, k_pe)
     return out, cache
 
 
@@ -147,8 +155,8 @@ def mla_decode(p, cfg, x, pos: int, cache):
     ckv, kpe = cache["ckv"], cache["kpe"]
     t = ckv.shape[1]
     slot = min(pos, t - 1)
-    ckv[:, slot] = ckv_new[:, 0]
-    kpe[:, slot] = kpe_new[:, 0]
+    write_seq(ckv, slot, ckv_new)
+    write_seq(kpe, slot, kpe_new)
     w_uk = p["w_ukv"][..., :nd]                          # (r, h, nd)
     w_uv = p["w_ukv"][..., nd:]                          # (r, h, vd)
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)  # (b, 1, h, r)

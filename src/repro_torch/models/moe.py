@@ -34,24 +34,26 @@ from __future__ import annotations
 
 import torch
 
-from .layers import Params, silu
+from .layers import Params, mlp_spec, shard_act, silu
 
 
 def moe_spec(cfg, dtype) -> dict:
-    """name → (shape, dtype, init scale), the reference's ``init_moe``:
+    """name → (shape, dtype, init scale, logical axes), the reference's
+    ``init_moe``:
     the router ``(d, E)`` in float32, the routed experts stacked on a
     leading E axis, and ``shared`` (width ``moe_d_ff`` × the shared
     expert count) when the config has shared experts."""
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-    spec = {"router": ((d, e), torch.float32, "fan_in"),
-            "gate": ((e, d, ff), dtype, "fan_in"),
-            "up": ((e, d, ff), dtype, "fan_in"),
-            "down": ((e, ff, d), dtype, "fan_in")}
+    spec = {"router": ((d, e), torch.float32, "fan_in",
+                       ("embed", "experts")),
+            "gate": ((e, d, ff), dtype, "fan_in",
+                     ("experts", "embed", "expert_mlp")),
+            "up": ((e, d, ff), dtype, "fan_in",
+                   ("experts", "embed", "expert_mlp")),
+            "down": ((e, ff, d), dtype, "fan_in",
+                     ("experts", "expert_mlp", "embed"))}
     if cfg.num_shared_experts:
-        sff = ff * cfg.num_shared_experts
-        spec["shared"] = {"gate": ((d, sff), dtype, "fan_in"),
-                          "up": ((d, sff), dtype, "fan_in"),
-                          "down": ((sff, d), dtype, "fan_in")}
+        spec["shared"] = mlp_spec(d, ff * cfg.num_shared_experts, dtype)
     return spec
 
 
@@ -135,15 +137,21 @@ def moe_ffn(p, cfg, x: torch.Tensor):
     # of its own; a dropped row adds zeros to its expert's last slot
     rows = torch.where(keep[:, None], xf[st_], torch.zeros((), dtype=x.dtype,
                                                            device=dev))
+    rows = shard_act(rows, ("tokens", "embed"))
     buf = torch.zeros((e, c, d), dtype=x.dtype, device=dev)
     buf.index_put_((se, slot), rows, accumulate=True)
+    buf = shard_act(buf, ("experts", None, "embed"))
 
     h = silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
+    h = shard_act(h, ("experts", None, "expert_mlp"))
     out_buf = torch.bmm(h, p["down"])                        # (E, C, d)
+    out_buf = shard_act(out_buf, ("experts", None, "embed"))
 
     # combine back to tokens, weighted by router prob
     weight = torch.where(keep, sw, torch.zeros((), device=dev))
-    yf = combine(out_buf[se, slot] * weight[:, None].to(x.dtype), order, k)
+    contrib = shard_act(out_buf[se, slot] * weight[:, None].to(x.dtype),
+                        ("tokens", "embed"))
+    yf = shard_act(combine(contrib, order, k), ("tokens", "embed"))
 
     if cfg.num_shared_experts:
         sp = p["shared"]

@@ -23,25 +23,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, gelu, softplus
+from .layers import Params, gelu, shard_act, softplus
 
 _C = 8.0
 
 
 def rglru_spec(cfg, dtype) -> dict:
-    """name → (shape, dtype, init scale), the reference's ``init_rglru``:
-    ``conv_b`` and ``lam`` stay f32 in a bf16 model."""
+    """name → (shape, dtype, init scale, logical axes), the reference's
+    ``init_rglru``: ``conv_b`` and ``lam`` stay f32 in a bf16 model."""
     w, d = cfg.lru_width or cfg.d_model, cfg.d_model
     return {
-        "w_x": ((d, w), dtype, "fan_in"),
-        "w_gate": ((d, w), dtype, "fan_in"),
-        "conv_w": ((cfg.conv_width, w), dtype, 0.5),
-        "conv_b": ((w,), torch.float32, "zeros"),
-        "w_r": ((w, w), dtype, "fan_in"),
-        "w_i": ((w, w), dtype, "fan_in"),
+        "w_x": ((d, w), dtype, "fan_in", ("embed", "mlp")),
+        "w_gate": ((d, w), dtype, "fan_in", ("embed", "mlp")),
+        "conv_w": ((cfg.conv_width, w), dtype, 0.5, ("conv", "mlp")),
+        "conv_b": ((w,), torch.float32, "zeros", ("mlp",)),
+        "w_r": ((w, w), dtype, "fan_in", ("mlp", "mlp2")),
+        "w_i": ((w, w), dtype, "fan_in", ("mlp", "mlp2")),
         # Λ so that a ∈ (0.9, 0.999) at r = 1 (Griffin appendix)
-        "lam": ((w,), torch.float32, 1.0),
-        "w_out": ((w, d), dtype, "fan_in"),
+        "lam": ((w,), torch.float32, 1.0, ("mlp",)),
+        "w_out": ((w, d), dtype, "fan_in", ("mlp", "embed")),
     }
 
 
@@ -94,8 +94,8 @@ def rglru_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
     """Full recurrent block, training path."""
     gate = gelu(x @ p["w_gate"])
     rec, _ = _conv(cfg, p, x @ p["w_x"])
-    h = rglru_scan(p, rec)
-    return (h.to(x.dtype) * gate) @ p["w_out"]
+    h = shard_act(rglru_scan(p, rec).to(x.dtype), ("batch", "seq", "mlp"))
+    return (h * gate) @ p["w_out"]
 
 
 def init_rglru_cache(cfg, batch: int, dtype, device) -> dict:

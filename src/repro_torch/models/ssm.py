@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, rms_norm, silu, softplus
+from .layers import Params, rms_norm, shard_act, silu, softplus
 
 
 def _dims(cfg):
@@ -33,20 +33,23 @@ def _dims(cfg):
 
 
 def ssm_spec(cfg, dtype) -> dict:
-    """name → (shape, dtype, init scale), the reference's ``init_ssm``."""
+    """name → (shape, dtype, init scale, logical axes), the reference's
+    ``init_ssm``."""
     d_inner, h, _, n = _dims(cfg)
     conv_dim = d_inner + 2 * n
     f32 = torch.float32
     return {
-        "in_proj": ((cfg.d_model, 2 * d_inner + 2 * n + h), dtype, "fan_in"),
-        "conv_w": ((cfg.conv_width, conv_dim), dtype, 0.5),
-        "conv_b": ((conv_dim,), f32, "zeros"),
+        "in_proj": ((cfg.d_model, 2 * d_inner + 2 * n + h), dtype, "fan_in",
+                    ("embed", "mlp")),
+        "conv_w": ((cfg.conv_width, conv_dim), dtype, 0.5, ("conv", "mlp")),
+        "conv_b": ((conv_dim,), f32, "zeros", ("mlp",)),
         # A stored as log(−A): A = −exp(a_log) ∈ (−∞, 0)
-        "a_log": ((h,), f32, "zeros"),
-        "d_skip": ((h,), f32, "ones"),
-        "dt_bias": ((h,), f32, "zeros"),
-        "out_norm": ((d_inner,), f32, "zeros"),
-        "out_proj": ((d_inner, cfg.d_model), dtype, "fan_in"),
+        "a_log": ((h,), f32, "zeros", ("heads",)),
+        "d_skip": ((h,), f32, "ones", ("heads",)),
+        "dt_bias": ((h,), f32, "zeros", ("heads",)),
+        "out_norm": ((d_inner,), f32, "zeros", ("mlp",)),
+        "out_proj": ((d_inner, cfg.d_model), dtype, "fan_in",
+                     ("mlp", "embed")),
     }
 
 
@@ -163,7 +166,7 @@ def _forward(p, cfg, x: torch.Tensor):
     z, xbc, dt = _split_proj(cfg, x @ p["in_proj"])
     xbc, conv_state = _conv(cfg, p, xbc)
     xs, b_in, c_in = torch.split(xbc, [d_inner, n, n], dim=-1)
-    xs = xs.reshape(b, s, h, hp)
+    xs = shard_act(xs.reshape(b, s, h, hp), ("batch", "seq", "heads", None))
     a = -torch.exp(p["a_log"].float())
     y, final = ssd_chunked(cfg, xs, dt + p["dt_bias"], b_in, c_in, a)
     y = y + xs * p["d_skip"][None, None, :, None].to(y.dtype)

@@ -22,9 +22,9 @@ from . import mla as mla_lib
 from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
-from .layers import (DTYPES, Params, cross_entropy, embed, init_rms,
-                     logits_from_tied, param, remat_call, rms_norm,
-                     sinusoidal_positions, swiglu)
+from .layers import (DTYPES, Params, cross_entropy, embed, empty, init_rms,
+                     logits_from_tied, mlp_spec, redraw, remat_call, rms_norm,
+                     shard_act, sinusoidal_positions, swiglu)
 
 ATTENTION = ("global", "local")
 
@@ -68,11 +68,8 @@ class Block(torch.nn.Module):
             raise ValueError(kind)
         if kind != "ssm":
             self.ln2 = init_rms(cfg.d_model, device)
-            d, f = cfg.d_model, cfg.d_ff
             self.ffn = Params(moe_lib.moe_spec(cfg, dtype) if use_moe else
-                              {"gate": ((d, f), dtype, "fan_in"),
-                               "up": ((d, f), dtype, "fan_in"),
-                               "down": ((f, d), dtype, "fan_in")}, device)
+                              mlp_spec(cfg.d_model, cfg.d_ff, dtype), device)
 
     def init(self, generator) -> None:
         self.mixer.init(generator)
@@ -109,7 +106,7 @@ class Block(torch.nn.Module):
         x, aux = self._ffn(self.mix(x, positions))
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x, aux
+        return shard_act(x, ("batch", "seq", "embed")), aux
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         """The training-path block's output alone (its aux dropped)."""
@@ -167,15 +164,14 @@ class MTPHead(torch.nn.Module):
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
-        self.proj = torch.nn.Parameter(torch.empty(
-            (2 * cfg.d_model, cfg.d_model), dtype=dtype, device=device))
+        self.proj = empty((2 * cfg.d_model, cfg.d_model), ("embed", "embed"),
+                          dtype, device)
         self.block = Block(cfg, "global", dtype, device,
                            use_moe=cfg.num_experts > 0)
         self.norm = init_rms(cfg.d_model, device)
 
     def init(self, generator) -> None:
-        self.proj = param(generator, tuple(self.proj.shape),
-                          dtype=self.proj.dtype, device=self.proj.device)
+        self.proj = redraw(generator, self.proj)
         self.block.init(generator)
 
 
@@ -191,9 +187,8 @@ class DecoderLM(torch.nn.Module):
         self.device = torch.device(device)
         self.kinds = tuple(cfg.pattern_layers)
         self.n_prefix = len(stack_plan(cfg)[0])
-        self.embedding = torch.nn.Parameter(torch.empty(
-            (cfg.padded_vocab, cfg.d_model), dtype=self.dtype,
-            device=self.device))
+        self.embedding = empty((cfg.padded_vocab, cfg.d_model),
+                               ("vocab", "embed"), self.dtype, self.device)
         self.final_norm = init_rms(cfg.d_model, self.device)
         moe = cfg.num_experts > 0
         self.blocks = torch.nn.ModuleList(
@@ -210,9 +205,7 @@ class DecoderLM(torch.nn.Module):
         """Random init from ``generator`` (a generator on the model's
         device): embedding rows truncated normal at scale 1, projections
         at fan-in scale, norms zero (identity).  Returns the model."""
-        self.embedding = param(generator, tuple(self.embedding.shape),
-                               dtype=self.dtype, device=self.device,
-                               scale=1.0)
+        self.embedding = redraw(generator, self.embedding, scale=1.0)
         for blk in self.blocks:
             blk.init(generator)
         if self.cfg.mtp_depth:

@@ -55,7 +55,7 @@ def init_opt_state(params, cfg: OptConfig | None = None) -> OptState:
     cfg = OptConfig() if cfg is None else cfg
     params = list(params)
     mdt = _DTYPES[cfg.moments_dtype]
-    mu = [torch.zeros(p.shape, dtype=mdt, device=p.device) for p in params]
+    mu = [torch.zeros_like(p, dtype=mdt) for p in params]
     nu = [torch.zeros_like(m) for m in mu]
     master = ([p.detach().float().clone() for p in params]
               if cfg.use_master else ())

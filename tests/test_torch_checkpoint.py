@@ -281,7 +281,9 @@ def test_launcher_sigterm_checkpoints_and_the_same_command_resumes(
 
 
 def test_launcher_refuses_the_production_mesh():
-    with pytest.raises(SystemExit, match=r"ROADMAP §1 item 3"):
+    """One rank cannot hold the 16×16 mesh: the launcher exits naming the
+    256 ranks it needs and the 1 it found."""
+    with pytest.raises(SystemExit, match=r"needs 256 ranks; found 1$"):
         train_cli.main(ARGS + ["--production-mesh"])
 
 
