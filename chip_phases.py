@@ -2,8 +2,10 @@
 
     python3 chip_phases.py [--root DIR] PHASE [PHASE ...]
 
-PHASE is one of 10, 11, 12 and 13 (the mask producers, training, the
-recurrent and encoder-decoder producers, the DeepSeek family).  The
+PHASE is one of 10, 11, 12, 13 and 14 (the mask producers, training, the
+recurrent and encoder-decoder producers, the DeepSeek family, the mesh:
+the dry-run, the MaskSearch cells and every family's sharded steps and
+checkpoint on a one-card mesh).  The
 script loads ``DIR/chip_smoke.py`` (default: the checkout beside this
 script) with ``DIR/src`` on the path, builds that checkout's kernels, and
 calls the phases' functions as ``chip_smoke.py`` does, so they print
@@ -23,7 +25,7 @@ import sys
 import time
 
 PHASES = {10: "producer_phase", 11: "training_phase", 12: "other_phase",
-          13: "deepseek_phase"}
+          13: "deepseek_phase", 14: "mesh_phase14"}
 
 
 def main(argv=None) -> int:
@@ -42,7 +44,7 @@ def main(argv=None) -> int:
         "chip_smoke", os.path.join(root, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import cuda_lib, ops
     cuda_lib.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -53,7 +55,10 @@ def main(argv=None) -> int:
     print(f"chip_phases: {root} ({smi})")
     for p in args.phases:
         t0 = time.perf_counter()
-        getattr(smoke, PHASES[p])(torch, torch.device("cuda"), smi)
+        dev = torch.device("cuda")
+        # phase 14 takes the kernels' launch counters too
+        args = (torch, dev, ops, smi) if p == 14 else (torch, dev, smi)
+        getattr(smoke, PHASES[p])(*args)
         print(f"chip_phases: phase {p} {time.perf_counter() - t0:.1f} s",
               flush=True)
     return 0

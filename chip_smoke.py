@@ -164,13 +164,23 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    counts 128x theirs) and ``iou_agg`` at 65,536 groups (cut from
    262,144), each timed beside its bytes over 3.35 TB/s, with
    ``cp_count`` and ``mask_agg_counts`` held against their plain versions
-   at tolerance 0; last, granite-3.0-2B at full width on a (1, 1)
-   ("data", "model") ``DeviceMesh``: greedy decode of 8 x 128 + 8 steps
-   with the cache placed by ``cache_sharding_tree`` (tokens equal to the
-   unsharded decode), phase 11's train step sharded against unsharded
-   (loss within 1e-3 relative), 2 sharded steps (ms, peak GB), and a
-   2-layer float32 cut's updated parameters against the unsharded step's
-   (``params_within_rule``).
+   at tolerance 0; the expert-parallel bytes a rank sends in a train
+   step on a 2 x 4 and a 16 x 16 mesh (``mesh ep reckoned`` lines,
+   ``sharding.ep_bytes``); last, on a (1, 1) ("data", "model")
+   ``DeviceMesh``: granite-3.0-2B at full width, greedy decode of 8 x 128
+   + 8 steps with the cache placed by ``cache_sharding_tree`` (tokens
+   equal to the unsharded decode), phase 11's train step sharded against
+   unsharded (loss within 1e-3 relative), 2 sharded steps (ms, peak GB),
+   and a 2-layer float32 cut's updated parameters against the unsharded
+   step's (``params_within_rule``); deepseek-v2-236b at phase 13's 8
+   layers, the same decode (tokens equal), and a 2-layer float32 cut's
+   loss and gradients against unsharded (1e-5 of scale); recurrentgemma-
+   2b, mamba2-1.3b and whisper-large-v3 at full width, the same decode on
+   phase 12's prompts (tokens equal); and at granite's 2-layer float32
+   cut, 2 steps on the mesh, a checkpoint saved from it and restored on
+   one device (every leaf equal), a third step there, equal to 3
+   uninterrupted steps (``mesh decode``, ``mesh train`` and ``mesh
+   ckpt`` lines with ms and peak GB).
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
@@ -3456,8 +3466,62 @@ def masksearch_mesh_cells(torch, dev, ops, smi) -> dict:
     return launches
 
 
-def sharded_granite(torch, dev, smi) -> None:
-    """14c-d: granite-3.0-2B at full width on a (1, 1) ("data", "model")
+MESH_STEPS = 8              # greedy decode steps of the mesh's decodes
+
+
+def mesh_greedy(torch, model, prompt, steps, mesh=None, cfg=None):
+    """``model``'s greedy tokens on ``prompt`` (host arrays; for whisper
+    its frames too), prefill then ``steps`` decode steps, each step's
+    argmax kept → ((B, steps) tokens on the card, seconds of the second
+    of two runs, the first a warm-up).  With a mesh (DTensor parameters,
+    the activation rules installed) the prompt is placed by
+    ``distribute_batch`` and the cache by ``cache_sharding_tree``, and
+    kept there after every call."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train.train_loop import replication
+    b, p_len = np.shape(prompt["tokens"])
+    if mesh is None:
+        prompt = {k: torch.as_tensor(v, device=model.device)
+                  for k, v in prompt.items()}
+        place = lambda c: c                                # noqa: E731
+    else:
+        prompt = sh.distribute_batch(mesh, prompt, cfg)
+        place = lambda c: sh.distribute_cache(mesh, c)     # noqa: E731
+    pos0 = p_len + (model.cfg.num_patches or 0)
+    for _ in range(2):
+        cache = (model.init_cache(b, enc_len=np.shape(
+            prompt["audio_feats"])[1]) if model.cfg.is_encoder_decoder
+            else model.init_cache(b, p_len + steps))
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with replication(model):
+            logits, cache = model.prefill(prompt, place(cache))
+            for i in range(steps):
+                nxt = logits[:, -1:].argmax(-1)
+                out.append(nxt.full_tensor() if hasattr(nxt, "full_tensor")
+                           else nxt)
+                logits, cache = model.decode_step(place(cache), nxt,
+                                                  pos0 + i)
+        torch.cuda.synchronize()
+        del cache, logits
+    return torch.cat(out, 1), time.perf_counter() - t0
+
+
+def granite_built(torch, cfg, dev, seed=0):
+    """granite (or a cut of it) from generator seed ``seed``, ``wq`` and
+    ``wk`` at an eighth of the init scale (phase 11's convention)."""
+    from repro_torch.models import build_model
+    m = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(seed))
+    with torch.no_grad():
+        for blk in m.blocks:
+            blk.mixer.wq.mul_(0.125)
+            blk.mixer.wk.mul_(0.125)
+    return m
+
+
+def sharded_granite(torch, dev, mesh, smi) -> None:
+    """14c-d: granite-3.0-2B at full width on the (1, 1) ("data", "model")
     DeviceMesh: decode with the cache placed by ``cache_sharding_tree``
     against the unsharded decode (tokens equal); phase 11's train step
     sharded against unsharded (loss within 1e-3), 2 sharded steps; a
@@ -3468,63 +3532,41 @@ def sharded_granite(torch, dev, smi) -> None:
     from repro_torch.configs import load_arch
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.launch import sharding as sh
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import build_model
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.train_loop import (make_loss_and_grads,
-                                              make_train_step, replication)
+                                              make_train_step)
 
     cfg = load_arch(PRODUCER_ARCH)
-    mesh = make_local_mesh((1, 1), ("data", "model"), "cuda")
 
     def built(c, seed=0):
-        m = build_model(c, dev).init(torch.Generator(dev).manual_seed(seed))
-        with torch.no_grad():
-            for blk in m.blocks:
-                blk.mixer.wq.mul_(0.125)
-                blk.mixer.wk.mul_(0.125)
-        return m
+        return granite_built(torch, c, dev, seed)
 
     # 14c. decode: 8 x 128 prompt, 8 greedy steps
+    torch.cuda.reset_peak_memory_stats(dev)
     model = built(cfg)
-    prompt = torch.as_tensor(SyntheticLMData(cfg, SERVE_PROMPT, SERVE_BATCH)
-                             .batch_at(0)["tokens"], device=dev)
-    steps = 8
-
-    def decode(m, cache, tok):
-        out = []
-        with replication(m):
-            logits, cache = m.prefill({"tokens": tok}, cache)
-            for i in range(steps):
-                nxt = logits[:, -1:].argmax(-1)
-                out.append(nxt.full_tensor() if hasattr(nxt, "full_tensor")
-                           else nxt)
-                logits, cache = m.decode_step(cache, nxt,
-                                              SERVE_PROMPT + i)
-        torch.cuda.synchronize()
-        return torch.cat(out, 1)
-
-    length = SERVE_PROMPT + steps
-    want = decode(model, model.init_cache(SERVE_BATCH, length), prompt)
+    prompt = {"tokens": SyntheticLMData(cfg, SERVE_PROMPT, SERVE_BATCH)
+              .batch_at(0)["tokens"]}
+    want, plain_s = mesh_greedy(torch, model, prompt, MESH_STEPS)
     sh.distribute_params(model, mesh, cfg)
     sh.install_activation_rules(mesh, cfg)
-    cache = sh.distribute_cache(mesh, model.init_cache(SERVE_BATCH, length))
-    spec = sh.cache_spec(mesh, "k", tuple(cache[0]["k"].shape))
+    shape = (SERVE_BATCH, SERVE_PROMPT + MESH_STEPS, cfg.num_kv_heads,
+             cfg.head_dim)
+    spec = sh.cache_spec(mesh, "k", shape)
     placements = sh.cache_sharding_tree(mesh, model.init_cache(1, 8))[0]
-    tok = sh.distribute_batch(mesh, {"tokens": prompt}, cfg)["tokens"]
-    t0 = time.perf_counter()
-    got = decode(model, cache, tok)
-    dec_s = time.perf_counter() - t0
+    got, dec_s = mesh_greedy(torch, model, prompt, MESH_STEPS, mesh, cfg)
     if not torch.equal(got, want):
         fail("mesh decode: tokens differ from the unsharded decode")
     print(f"mesh decode: {cfg.name} at full width on a (1, 1) (data, model) "
           f"DeviceMesh, params by param_sharding_tree, the cache by "
           f"cache_sharding_tree (k and v: spec {spec}, on one rank "
           f"{placements['k']}): prefill {SERVE_BATCH} x "
-          f"{SERVE_PROMPT} + {steps} greedy steps in {dec_s:.3f} s, tokens "
-          f"equal to the unsharded decode ({smi})")
+          f"{SERVE_PROMPT} + {MESH_STEPS} greedy steps in "
+          f"{dec_s * 1e3:.3f} ms (unsharded {plain_s * 1e3:.3f} ms; each "
+          f"the second of two runs), tokens equal to the unsharded decode; "
+          f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+          f"({smi})")
     sh.clear_activation_rules()
-    del model, cache, tok
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3601,6 +3643,284 @@ def sharded_granite(torch, dev, smi) -> None:
           f"where grads are under the noise {inside:.3e}) ({smi})")
 
 
+def sharded_deepseek(torch, dev, mesh, smi) -> None:
+    """14e-f: deepseek-v2-236b at full width cut to phase 13's 8 layers
+    (bf16, 57.33 GB) on the (1, 1) mesh: greedy decode of 8 x 128 +
+    ``MESH_STEPS`` steps with the cache placed by ``cache_sharding_tree``,
+    tokens equal to the unsharded decode of the same weights, run first.
+    Then a 2-layer float32 cut (1 dense + 1 MoE): the loss and every
+    gradient on the mesh against unsharded (1e-5 of scale), the
+    unsharded gradients parked on the host and compared leaf by leaf so
+    that the card holds one model and one set of gradients."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import load_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import make_loss_and_grads, replication
+
+    # 14e. decode at full width, 8 of 60 layers
+    cfg = dataclasses.replace(load_arch(DEEPSEEK_ARCH),
+                              num_layers=DEEPSEEK_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
+    prompt = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
+    want, plain_s = mesh_greedy(torch, model, prompt, MESH_STEPS)
+    sh.distribute_params(model, mesh, cfg)
+    sh.install_activation_rules(mesh, cfg)
+    got, dec_s = mesh_greedy(torch, model, prompt, MESH_STEPS, mesh, cfg)
+    sh.clear_activation_rules()
+    if not torch.equal(got, want):
+        fail(f"mesh decode {cfg.name}: tokens differ from the unsharded "
+             f"decode")
+    experts = str(model.blocks[-1].ffn.gate.placements)
+    print(f"mesh decode: {cfg.name} at full width, {DEEPSEEK_LAYERS} of 60 "
+          f"layers, on the (1, 1) mesh (routed experts {experts}; the "
+          f"MoE's expert-parallel dispatch and combine): prefill "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} + {MESH_STEPS} greedy steps in "
+          f"{dec_s * 1e3:.3f} ms (unsharded {plain_s * 1e3:.3f} ms; each the "
+          f"second of two runs), tokens equal to the unsharded decode; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14f. the 2-layer float32 cut: loss and gradients
+    cut = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    model = build_model(cut, dev).init(torch.Generator(dev).manual_seed(1))
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"mesh train reckoned: {cut.name} 2-layer float32 cut "
+          f"{n_bytes / 1e9:.2f} GB of parameters; on the card the parameters "
+          f"and one set of gradients, {2 * n_bytes / 1e9:.2f} GB, the other "
+          f"gradients on the host")
+    if 2 * n_bytes > 70e9:
+        fail(f"mesh train: {2 * n_bytes / 1e9:.2f} GB leaves no room on the "
+             f"card")
+    batch = SyntheticLMData(cut, 64, 2, seed=3).batch_at(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = make_loss_and_grads(model, 1)(batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(loss)
+    ref = [g.cpu() for g in grads]
+    del grads
+    for p in model.parameters():
+        p.grad = None
+    sh.distribute_params(model, mesh, cut)
+    sh.install_activation_rules(mesh, cut)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with replication(model):
+        loss2, _, grads = make_loss_and_grads(
+            model, 1, lambda b: sh.distribute_batch(mesh, b, cut))(batch)
+    torch.cuda.synchronize()
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    sh.clear_activation_rules()
+    loss2 = float(loss2.full_tensor())
+    worst = 0.0
+    for g, w in zip(grads, ref):
+        w = w.to(dev)
+        worst = max(worst, float((g.full_tensor() - w).abs().max()) /
+                    max(1.0, float(w.abs().max())))
+    e = abs(loss2 - loss) / max(1.0, abs(loss))
+    if e > 1e-5 or worst > 1e-5:
+        fail(f"mesh train {cut.name}: loss {loss2} vs {loss} (err {e}), "
+             f"gradients {worst} of scale")
+    print(f"mesh train: {cut.name} 2-layer float32 cut at full width (1 "
+          f"dense + 1 MoE), loss and gradients of 2 x 64 tokens on the (1, "
+          f"1) mesh against unsharded: loss {loss2:.6f} (err {e:.3e} of "
+          f"scale), gradients max err {worst:.3e} of scale (limit 1e-5); "
+          f"{mesh_ms:.3f} ms (unsharded {plain_ms:.3f} ms); peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
+    del model, grads, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ep_reckoned() -> None:
+    """The expert-parallel bytes one rank sends in a train step
+    (``sharding.ep_bytes``: reckoned from the placements, forward and
+    backward of every MoE layer and microbatch; not measured): on the
+    2 x 4 ("data", "model") mesh of the CPU tests, deepseek-v2 SMOKE at
+    their step (2 microbatches of 4 x 16 tokens) and deepseek-v2-236b at
+    train_4k (its 8 microbatches of 32 x 4,096 tokens); and the latter on
+    the 16 x 16 production mesh.  Beside each, what replicating the routed
+    experts would send instead (:func:`replicated`)."""
+    import types
+    from repro_torch.configs import SHAPES, load_arch, load_smoke
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.transformer import stack_plan
+
+    def mesh(shape):
+        return types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                     shape=shape, ndim=2)
+
+    spec = SHAPES["train_4k"]
+    full = load_arch(DEEPSEEK_ARCH)
+    mb = full.microbatches_train_4k
+    for cfg, shape, micro, tokens in (
+            (load_smoke(DEEPSEEK_ARCH), (2, 4), 2, 8 * 16 // 2),
+            (full, (2, 4), mb, spec["global_batch"] * spec["seq_len"] // mb),
+            (full, (16, 16), mb,
+             spec["global_batch"] * spec["seq_len"] // mb)):
+        layers = cfg.num_layers - len(stack_plan(cfg)[0])
+        ep = sh.ep_bytes(mesh(shape), cfg, tokens)
+        print(f"mesh ep reckoned: {cfg.name} on {shape[0]} x {shape[1]}, "
+              f"{layers} MoE layers x {micro} microbatches of {tokens:,} "
+              f"tokens: a call sends routing {ep['routing']:,.0f} B, "
+              f"dispatch {ep['dispatch']:,.0f} B, combine "
+              f"{ep['combine']:,.0f} B (forward {ep['forward']:,.0f}); a "
+              f"train step {layers * micro * ep['train'] / 1e9:,.6f} GB a "
+              f"rank (all-reduce, no all-to-all); replicated experts "
+              f"instead: their gradients' all-reduce "
+              f"{replicated(cfg, shape, layers) / 1e9:,.6f} GB a rank a "
+              f"step")
+
+
+def replicated(cfg, shape, layers: int) -> float:
+    """The bytes one rank would send in a train step with the routed
+    experts replicated instead of split: their gradients all-reduced once
+    over every rank of the mesh (a ring's 2(n-1)/n), in the parameters'
+    dtype; every rank would then hold all their weights."""
+    n = shape[0] * shape[1]
+    nbytes = (layers * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff *
+              (2 if cfg.dtype == "bfloat16" else 4))
+    return 2 * (n - 1) / n * nbytes
+
+
+def sharded_others(torch, dev, mesh, smi) -> None:
+    """14g: recurrentgemma-2b, mamba2-1.3b and whisper-large-v3 at full
+    width and depth (bf16, generator seed 0) on the (1, 1) mesh: phase
+    12's prompt, ``MESH_STEPS`` greedy steps with the cache placed by
+    ``cache_sharding_tree``, tokens equal to the unsharded decode."""
+    import gc
+    from repro_torch.configs import load_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import build_model
+    for arch in OTHER_ARCHS:
+        cfg = load_arch(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(cfg, dev).init(
+            torch.Generator(dev).manual_seed(0))
+        prompt = other_prompt(serve, cfg)
+        want, plain_s = mesh_greedy(torch, model, prompt, MESH_STEPS)
+        sh.distribute_params(model, mesh, cfg)
+        sh.install_activation_rules(mesh, cfg)
+        got, dec_s = mesh_greedy(torch, model, prompt, MESH_STEPS, mesh, cfg)
+        sh.clear_activation_rules()
+        if not torch.equal(got, want):
+            fail(f"mesh decode {cfg.name}: tokens differ from the unsharded "
+                 f"decode")
+        b, p_len = np.shape(prompt["tokens"])
+        frames = (f"{WHISPER_FRAMES} frames + " if cfg.is_encoder_decoder
+                  else "")
+        print(f"mesh decode: {cfg.name} at full width on the (1, 1) mesh: "
+              f"prefill {b} x ({frames}{p_len} tokens) + {MESH_STEPS} "
+              f"greedy steps in {dec_s * 1e3:.3f} ms (unsharded "
+              f"{plain_s * 1e3:.3f} ms; each the second of two runs), tokens "
+              f"equal to the unsharded decode; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mesh_checkpoint(torch, dev, mesh, smi) -> None:
+    """14h: at granite's 2-layer float32 cut, 2 train steps on the (1, 1)
+    mesh, a checkpoint saved from it (every leaf made whole, rank 0
+    writes), restored on one device (every leaf equal to the mesh's, bit
+    for bit), and a third step there: losses and parameters equal to 3
+    uninterrupted unsharded steps from the same weights (1e-5 of
+    scale)."""
+    import dataclasses
+    import gc
+    import tempfile
+    from repro_torch.configs import load_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+
+    cut = dataclasses.replace(load_arch(PRODUCER_ARCH), num_layers=2,
+                              dtype="float32")
+    data = SyntheticLMData(cut, 64, 4, seed=3)
+    opt_cfg = OptConfig(warmup_steps=0, total_steps=10)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def steps(m, opt, lo, hi, place=None):
+        step = make_train_step(m, opt_cfg, microbatches=2, place_batch=place)
+        losses = []
+        for s in range(lo, hi):
+            opt, met = step(opt, data.batch_at(s))
+            loss = met["loss"]
+            losses.append(float(loss.full_tensor() if hasattr(
+                loss, "full_tensor") else loss))
+        return opt, losses
+
+    m = granite_built(torch, cut, dev, 1)
+    _, want = steps(m, init_opt_state(m.parameters(), opt_cfg), 0, 3)
+    want_p = [p.detach().cpu() for p in m.parameters()]
+    del m
+    m = sh.distribute_params(granite_built(torch, cut, dev, 1), mesh, cut)
+    sh.install_activation_rules(mesh, cut)
+    opt, got = steps(m, init_opt_state(m.parameters(), opt_cfg), 0, 2,
+                     lambda b: sh.distribute_batch(mesh, b, cut))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(tmp, 1, {"params": m, "opt": opt})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        sh.clear_activation_rules()
+        n_bytes = sum(os.path.getsize(os.path.join(tmp, "step_00000001", f))
+                      for f in os.listdir(os.path.join(tmp, "step_00000001")))
+        one = granite_built(torch, cut, dev, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ckpt.restore(tmp, 1, {"params": one, "opt": init_opt_state(
+            one.parameters(), opt_cfg)})
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    mine = ([p.detach() for p in m.parameters()] + [opt.step] + list(opt.mu)
+            + list(opt.nu) + list(opt.master))
+    back = state["opt"]
+    theirs = ([p.detach() for p in one.parameters()] + [back.step] +
+              list(back.mu) + list(back.nu) + list(back.master))
+    if len(mine) != len(theirs) or not all(
+            torch.equal(whole(a), b) for a, b in zip(mine, theirs)):
+        fail("mesh ckpt: a leaf restored on one device differs from the "
+             "mesh's")
+    del m, opt, mine
+    _, last = steps(one, back, 2, 3)
+    got += last
+    e_loss = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
+    e_par = max(float((p.detach().cpu() - w).abs().max()) /
+                max(1.0, float(w.abs().max()))
+                for p, w in zip(one.parameters(), want_p))
+    if e_loss > 1e-5 or e_par > 1e-5:
+        fail(f"mesh ckpt: the resumed steps differ from the uninterrupted "
+             f"ones (losses {got} vs {want}; parameters {e_par} of scale)")
+    print(f"mesh ckpt: {cut.name} 2-layer float32 cut, 2 steps on the (1, "
+          f"1) mesh, saved ({n_bytes / 1e9:.2f} GB in {save_ms:.3f} ms), "
+          f"restored on one device ({restore_ms:.3f} ms; {len(theirs)} "
+          f"leaves equal bit for bit), a third step there: losses "
+          f"{', '.join(f'{x:.6f}' for x in got)} vs uninterrupted "
+          f"{', '.join(f'{x:.6f}' for x in want)} (max err {e_loss:.3e}), "
+          f"parameters max err {e_par:.3e} of scale (limit 1e-5); peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
+    del one, state, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def dryrun_cells() -> None:
     """14a: ``python -m repro_torch.launch.dryrun`` for every cell on both
     meshes (no cost), granite_3_2b/train_4k with cost and the MaskSearch
@@ -3674,8 +3994,10 @@ def dryrun_cells() -> None:
 
 def mesh_phase14(torch, dev, ops, smi) -> dict:
     """Phase 14: the dry-run in subprocesses (14a), the MaskSearch cells on
-    one card (14b), granite sharded on a (1, 1) mesh (14c-d).  Returns the
-    MaskSearch cells' kernel launches."""
+    one card (14b), then on a (1, 1) mesh granite (14c-d), deepseek-v2
+    (14e-f), the recurrent and encoder-decoder families (14g) and a
+    checkpoint saved from the mesh and resumed on one device (14h).
+    Returns the MaskSearch cells' kernel launches."""
     import gc
     import tempfile
     import torch.distributed as tdist
@@ -3685,13 +4007,21 @@ def mesh_phase14(torch, dev, ops, smi) -> dict:
     dryrun_cells()
     launches = masksearch_mesh_cells(torch, dev, ops, smi)
     print(f"mesh launches (MaskSearch cells): {launches}")
+    from repro_torch.launch.mesh import make_local_mesh
     torch.cuda.set_device(dev.index or 0)
     with tempfile.TemporaryDirectory() as tmp:
         tdist.init_process_group(
             "nccl", store=tdist.FileStore(os.path.join(tmp, "store"), 1),
             rank=0, world_size=1)
         try:
-            sharded_granite(torch, dev, smi)
+            mesh = make_local_mesh((1, 1), ("data", "model"), "cuda")
+            ep_reckoned()
+            for part in (sharded_granite, sharded_deepseek, sharded_others,
+                         mesh_checkpoint):
+                t0 = time.perf_counter()
+                part(torch, dev, mesh, smi)
+                print(f"mesh {part.__name__}: "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
         finally:
             tdist.destroy_process_group()
     print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")

@@ -28,12 +28,15 @@ The plan (the reference's DESIGN.md §6):
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from ..models import layers as L
+from ..models import moe
 
 # Candidate mesh axes per logical axis, in priority order.  Tuples are used
 # jointly (FSDP over data AND pod); the resolver drops members that are
@@ -201,9 +204,14 @@ def distribute_params(model, mesh, cfg=None):
 
 def distribute_cache(mesh, cache) -> list:
     """A port cache with each leaf a DTensor under
-    :func:`cache_sharding_tree`'s placements."""
+    :func:`cache_sharding_tree`'s placements: a plain leaf (the same on
+    every rank) keeps its own shard, and a DTensor leaf, as a decode step
+    left it, is redistributed (the reference's ``out_shardings`` of its
+    serve step)."""
     placements = cache_sharding_tree(mesh, cache)
-    return [{name: _put(mesh, leaf, placements[i][name])
+    return [{name: (leaf.redistribute(mesh, placements[i][name])
+                    if isinstance(leaf, DTensor) else
+                    _put(mesh, leaf, placements[i][name]))
              for name, leaf in layer.items()}
             for i, layer in enumerate(cache)]
 
@@ -233,8 +241,11 @@ def install_activation_rules(mesh, cfg=None) -> None:
         if list(x.placements) == want:
             return x
         return x.redistribute(mesh, want)
-    L.set_activation_rule(rule, write_seq=_write_seq, split_dim=_split_dim,
-                          merge_dims=_merge_dims, fill_from=_fill_from)
+    L.set_activation_rule(
+        rule, write_seq=_write_seq, split_dim=_split_dim,
+        merge_dims=_merge_dims, fill_from=_fill_from, whole=_whole,
+        expert_buffers=functools.partial(_expert_buffers, rules),
+        expert_combine=functools.partial(_expert_combine, rules))
 
 
 def clear_activation_rules() -> None:
@@ -261,12 +272,7 @@ def _write_seq(dst, start: int, src) -> None:
         src = DTensor.from_local(src, mesh, replicated(mesh))
     src = src.redistribute(mesh, whole).to_local()
     local = dst.to_local()
-    n = local.shape[1]
-    coord, shard = mesh.get_coordinate(), 0
-    for i, p in enumerate(dst.placements):      # the first mesh dim major
-        if p.is_shard(1):
-            shard = shard * mesh.size(i) + coord[i]
-    lo = shard * n
+    lo, n = _block(mesh, dst.placements, 1, dst.shape[1])
     a, b = max(start, lo), min(start + src.shape[1], lo + n)
     if a < b:
         local[:, a - lo:b - lo] = src[:, a - start:b - start]
@@ -319,6 +325,163 @@ def _fill_from(x, start: int, value: float):
         return x
     return x.masked_fill(torch.arange(x.shape[-1], device=x.device) >= start,
                          value)
+
+
+def _block(mesh, placements, dim: int, size: int) -> tuple:
+    """(start, length) of this rank's block of a dim of ``size`` that
+    ``placements`` split: the resolver only splits a dim evenly, and a
+    dim split over several mesh dims takes the first mesh dim major."""
+    coord, shard, ways = mesh.get_coordinate(), 0, 1
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            shard = shard * mesh.size(i) + coord[i]
+            ways *= mesh.size(i)
+    return shard * (size // ways), size // ways
+
+
+def _whole(x):
+    """A DTensor made whole on every rank, as a plain tensor."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _ep_plan(rules, mesh, t: int, e: int, c: int, d: int):
+    """The expert-parallel layout of one MoE call on ``mesh``: the
+    placements of the (T, d) token rows (the ``"tokens"`` rule) and of the
+    (E, C, d) expert buffers (``"experts"``)."""
+    tok = placements_for(mesh, spec_for(mesh, rules, ("tokens", "embed"),
+                                        (t, d)))
+    exp = placements_for(mesh, spec_for(mesh, rules,
+                                        ("experts", None, "embed"),
+                                        (e, c, d)))
+    if any(a.is_shard() and b.is_shard() for a, b in zip(tok, exp)):
+        raise ValueError("a mesh axis splits both the MoE's tokens and its "
+                         "experts")
+    return tok, exp
+
+
+def _dims(placements) -> list:
+    return [i for i, p in enumerate(placements) if p.is_shard()]
+
+
+def _partial_where(placements, split) -> list:
+    """``placements`` with ``Partial()`` on the mesh dims that ``split``
+    shards: for a local tensor (a value or a gradient) that is this
+    rank's part of a sum over those dims."""
+    return [Partial() if s.is_shard() else p
+            for p, s in zip(placements, split)]
+
+
+def ep_bytes(mesh, cfg, tokens: int) -> dict:
+    """The bytes one rank sends in one MoE call of ``tokens`` tokens on
+    ``mesh`` (a ``DeviceMesh`` or any object with ``mesh_dim_names``,
+    ``shape`` and ``ndim``) under the config's plan, reckoned from the
+    placements as the mesh ops move them, each all-reduce over a mesh dim
+    of ``n`` ranks a ring's ``2·(n−1)/n`` of its tensor, the gather of
+    the expert ids an all-gather's ``(n−1)/n`` of the whole:
+
+    * ``routing``: the (T·k,) int64 expert ids gathered (``whole``);
+    * ``dispatch``: the local (E/e, C, d) buffer summed over the
+      token-split dims (``expert_buffers``);
+    * ``combine``: the (T/t, k, d) rows summed over the expert-split dims
+      (``expert_combine``).
+
+    The ops' backward passes send nothing: they hand back ``Partial``
+    gradients, which the step sums once each where DTensor's strategies
+    next need them whole, and ``train`` reckons each at its own size: the
+    expert outputs' (E/e, C, d) over the token-split dims, and the (T/t,
+    d) token rows' and the (T/t, k) float32 weights' over the
+    expert-split dims.
+
+    → {part: bytes}, with ``forward`` and ``train`` (forward + those
+    gradient sums) totals."""
+    e, k, d = cfg.num_experts, cfg.top_k, cfg.d_model
+    c = moe.capacity(cfg, tokens)
+    b = 2 if cfg.dtype == "bfloat16" else 4
+    tok, exp = _ep_plan(rules_for(cfg, mesh)[1], mesh, tokens, e, c, d)
+    sizes = list(mesh_axes(mesh).values())
+    t_ways = math.prod(sizes[i] for i in _dims(tok))
+    e_ways = math.prod(sizes[i] for i in _dims(exp))
+
+    def ring(dims, nbytes):
+        return sum(2 * (sizes[i] - 1) / sizes[i] * nbytes for i in dims)
+
+    rows = tokens // t_ways
+    out = {"routing": (t_ways - 1) / t_ways * tokens * k * 8,
+           "dispatch": ring(_dims(tok), e // e_ways * c * d * b),
+           "combine": ring(_dims(exp), rows * k * d * b)}
+    out["forward"] = sum(out.values())
+    out["train"] = (out["forward"] + out["dispatch"] +
+                    ring(_dims(exp), rows * d * b + rows * k * 4))
+    return out
+
+
+# the MoE ops' plain versions, for a plain tensor while the rules are on
+_PLAIN_BUFFERS = moe.expert_buffers.__wrapped__
+_PLAIN_COMBINE = moe.expert_combine.__wrapped__
+
+
+def _expert_buffers(rules, xf, route):
+    """The (E, C, d) expert buffers on a mesh, experts split as the
+    ``"experts"`` rule says (expert parallelism): each rank fills only
+    its own experts' rows from its own block of tokens, and the blocks of
+    the token-split mesh dims are summed (each kept row has a slot of its
+    own, so the sum is exact).  Dropped rows add nothing."""
+    if not isinstance(xf, DTensor):
+        return _PLAIN_BUFFERS(xf, route)
+    mesh = xf.device_mesh
+    t, d = xf.shape
+    tok, exp = _ep_plan(rules, mesh, t, route.e, route.c, d)
+    (t0, tn), (e0, en) = _block(mesh, tok, 0, t), _block(mesh, exp, 0, route.e)
+    # the rows' gradient is this rank's experts' part of the whole
+    xl = xf.redistribute(mesh, tok).to_local(
+        grad_placements=_partial_where(tok, exp))
+    mine = (route.keep & (route.st >= t0) & (route.st < t0 + tn) &
+            (route.se >= e0) & (route.se < e0 + en)).nonzero()[:, 0]
+    buf = torch.zeros((en, route.c, d), dtype=xl.dtype, device=xl.device)
+    buf = buf.index_put((route.se[mine] - e0, route.slot[mine]),
+                        xl[route.st[mine] - t0], accumulate=True)
+    return DTensor.from_local(buf, mesh, _partial_where(exp, tok)
+                              ).redistribute(mesh, exp)
+
+
+def _expert_combine(rules, out_buf, topw, route):
+    """The expert outputs back at their tokens on a mesh: each rank takes
+    the rows of its block of tokens that its experts computed, weighted
+    (``topw`` made token-split), the expert-split mesh dims sum them, so
+    every row is whole where its token lives, and each token's k rows are
+    summed left to right in sorted order, as :func:`moe.combine` sums
+    them.  Returns the (T, d) output split as the ``"tokens"`` rule
+    says."""
+    if not isinstance(out_buf, DTensor):
+        return _PLAIN_COMBINE(out_buf, topw, route)
+    mesh = out_buf.device_mesh
+    e, c, d = out_buf.shape
+    t, k = topw.shape
+    tok, exp = _ep_plan(rules, mesh, t, e, c, d)
+    (t0, tn), (e0, en) = _block(mesh, tok, 0, t), _block(mesh, exp, 0, e)
+    # this rank's experts' outputs (their gradient: its own tokens' part)
+    # and its tokens' weights (their gradient: its own experts' part)
+    ol = out_buf.redistribute(mesh, exp).to_local(
+        grad_placements=_partial_where(exp, tok))
+    wl = topw.redistribute(mesh, tok).to_local(
+        grad_placements=_partial_where(tok, exp))
+    # each local token's k assignments, in sorted order
+    sorted_pos = torch.empty_like(route.order)
+    sorted_pos[route.order] = torch.arange(t * k, device=route.order.device)
+    j = sorted_pos.view(t, k).sort(dim=-1).values[t0:t0 + tn]
+    se, slot = route.se[j], route.slot[j]
+    w = torch.where(route.keep[j], wl.gather(1, route.order[j] % k),
+                    torch.zeros((), device=wl.device))
+    have = (se >= e0) & (se < e0 + en)
+    rows = ol[torch.where(have, se - e0, 0), slot] * w[..., None].to(ol.dtype)
+    rows = torch.where(have[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    rows = DTensor.from_local(rows, mesh, _partial_where(tok, exp)
+                              ).redistribute(mesh, tok).to_local()
+    yf = rows[:, 0]
+    for i in range(1, k):
+        yf = yf + rows[:, i]
+    return DTensor.from_local(yf, mesh, tok)
 
 
 # -- cache shardings (decode / prefill) --------------------------------------

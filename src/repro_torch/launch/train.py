@@ -30,8 +30,10 @@ the cards, gloo on the CPU).
     config on a mesh without "pod"), as the dry-run reckons it; the
     reference's launcher passes no config and so always takes the TP
     plan.  Each rank takes card
-    ``LOCAL_RANK``.  Checkpoints are written from one device only:
-    ``--ckpt-dir`` with a mesh is refused.
+    ``LOCAL_RANK``.  ``--ckpt-dir`` works on a mesh as on one device:
+    every rank makes each leaf whole, rank 0 writes the one-device
+    layout, and a resume places the leaves back on the mesh; a
+    preemption seen by any rank stops them all at the same step.
   * With one rank it trains on ``--device``, as before.
 """
 
@@ -85,6 +87,16 @@ def _world(dev: torch.device) -> tuple:
     return 1, False
 
 
+def _any_rank(flag: bool, mesh, dev) -> bool:
+    """``flag`` on one device; on a mesh, whether any rank raised it (a
+    max over the ranks), so that all take the same branch."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def _value(x) -> float:
     return float(x.full_tensor() if isinstance(x, DTensor) else x)
 
@@ -121,9 +133,6 @@ def _run(args, dev, world, model) -> dict:
               f"training on {dev} alone (run one rank per card, e.g. "
               f"under torchrun, to train on a mesh)")
     if mesh is not None:
-        if args.ckpt_dir:
-            raise SystemExit("--ckpt-dir: checkpoints are written from one "
-                             "device; train on a mesh without it")
         if dev.type == "cuda":
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
             torch.cuda.set_device(dev)
@@ -184,7 +193,7 @@ def _run(args, dev, world, model) -> dict:
                       f"[{rec['step_s'] * 1e3:.1f} ms, "
                       f"{tokens / rec['step_s']:,.0f} tok/s, optimizer "
                       f"{rec['opt_s'] * 1e3:.1f} ms{peak}]", flush=True)
-            stop = guard.should_stop
+            stop = _any_rank(guard.should_stop, mesh, dev)
             if args.ckpt_dir and (stop or (s and s % args.save_every == 0)
                                   or s == args.steps - 1):
                 ckpt.save(args.ckpt_dir, s,

@@ -18,7 +18,8 @@ name a mesh axis.  :func:`shard_act` annotates an activation with its
 logical axes; it is the identity unless the launcher installs a rule
 (:func:`set_activation_rule`).  The few ops whose plain form a sharded
 tensor refuses (:func:`mesh_op`: cache writes, head splits, the LM
-head's pad fill) are plain here; the launcher installs its mesh's
+head's pad fill, the MoE's routing gather and its expert dispatch and
+combine) are plain here; the launcher installs its mesh's
 versions with the rule, so no model code knows of a mesh.
 """
 
@@ -191,6 +192,13 @@ def split_dim(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
 def merge_dims(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``x.flatten(dim, dim + 1)``."""
     return x.flatten(dim, dim + 1)
+
+
+@mesh_op
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a plain tensor, whole on every rank (the MoE routing's
+    small int data, which every rank needs whole)."""
+    return x
 
 
 @mesh_op

@@ -28,13 +28,25 @@ Rounding the reference fixes and the port keeps:
   atomics, in no fixed order).
 * **Dropped rows** gather ``out_buf[e, C−1]`` times a zero weight, as
   the reference does, rather than being masked out.
+
+On a mesh the routing stays global: every rank computes the same plan
+(:class:`Routing`) from the expert ids of the whole call, gathered across
+the token-sharded ranks (:func:`~.layers.whole`), so the capacity and the
+drops are one device's.  The two data moves, :func:`expert_buffers` and
+:func:`expert_combine`, are :func:`~.layers.mesh_op` ops: the launcher's
+versions (``launch/sharding.py``) fill each rank's own experts' slice of
+the buffers and bring the expert outputs back to the token-sharded ranks
+(expert parallelism, the reference's GSPMD all-to-all).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .layers import Params, mlp_spec, shard_act, silu
+from .layers import (Params, merge_dims, mesh_op, mlp_spec, shard_act, silu,
+                     split_dim, whole)
 
 
 def moe_spec(cfg, dtype) -> dict:
@@ -100,13 +112,73 @@ def combine(contrib: torch.Tensor, order: torch.Tensor, k: int):
     return yf
 
 
+class Routing(NamedTuple):
+    """The sort-based dispatch plan of one call, over its T·k assignments
+    in expert-sorted order (plain tensors, the same on every rank):
+    ``order`` (assignment ids: token·k + choice), ``se`` and ``st`` (their
+    expert and token), ``slot`` (the row in the expert's buffer) and
+    ``keep`` (within capacity); ``e`` experts, ``c`` rows each, top-``k``."""
+    order: torch.Tensor
+    se: torch.Tensor
+    st: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    e: int
+    c: int
+    k: int
+
+
+def plan(flat_e: torch.Tensor, counts: torch.Tensor, c: int,
+         k: int) -> Routing:
+    """The sort-based dispatch plan of a call's (T·k,) expert ids, with
+    ``counts`` per expert and ``c`` rows each."""
+    n, dev = flat_e.shape[0], flat_e.device
+    flat_t = torch.arange(n, device=dev) // k
+    order = torch.argsort(flat_e, stable=True)
+    se, st_ = flat_e[order], flat_t[order]
+    # rank within expert queue = position − start offset of that expert
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - starts[se]
+    keep = rank < c
+    slot = torch.where(keep, rank, c - 1)
+    return Routing(order, se, st_, slot, keep, counts.shape[0], c, k)
+
+
+@mesh_op
+def expert_buffers(xf: torch.Tensor, route: Routing) -> torch.Tensor:
+    """(T, d) token rows → the (E, C, d) expert buffers: each kept row has
+    a slot of its own; a dropped row adds zeros to its expert's last
+    slot."""
+    rows = torch.where(route.keep[:, None], xf[route.st],
+                       torch.zeros((), dtype=xf.dtype, device=xf.device))
+    rows = shard_act(rows, ("tokens", "embed"))
+    buf = torch.zeros((route.e, route.c, xf.shape[1]), dtype=xf.dtype,
+                      device=xf.device)
+    buf.index_put_((route.se, route.slot), rows, accumulate=True)
+    return buf
+
+
+@mesh_op
+def expert_combine(out_buf: torch.Tensor, topw: torch.Tensor,
+                   route: Routing) -> torch.Tensor:
+    """The (E, C, d) expert outputs → (T, d): each kept row's output back
+    at its token, weighted by its router probability (``topw``, (T, k)),
+    the token's k rows summed by :func:`combine`."""
+    sw = topw.reshape(-1)[route.order]
+    weight = torch.where(route.keep, sw,
+                         torch.zeros((), device=sw.device))
+    contrib = shard_act(out_buf[route.se, route.slot] *
+                        weight[:, None].to(out_buf.dtype),
+                        ("tokens", "embed"))
+    return combine(contrib, route.order, route.k)
+
+
 def moe_ffn(p, cfg, x: torch.Tensor):
     """x: (B, S, d) → (out (B, S, d), aux_loss scalar float32)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     t = b * s
-    xf = x.reshape(t, d)
-    dev = x.device
+    xf = merge_dims(x, 0)                                    # (T, d)
 
     probs = router_probs(p, xf)                              # (T, E)
     topw, tope = top_k(probs, k)                             # (T, k)
@@ -114,33 +186,17 @@ def moe_ffn(p, cfg, x: torch.Tensor):
 
     # load-balancing aux (Switch): E * Σ_e fraction_tokens_e · mean_prob_e
     me = probs.mean(dim=0)
-    flat_e = tope.reshape(-1)                                # (T*k,)
+    flat_e = whole(tope).reshape(-1)                         # (T*k,)
+    dev = flat_e.device
     counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     ce = counts.float() / (t * k)
     aux = cfg.router_aux_weight * e * torch.sum(me * ce)
 
-    c = capacity(cfg, t)
+    route = plan(flat_e, counts, capacity(cfg, t), k)
 
-    # sort-based dispatch ---------------------------------------------------
-    flat_t = torch.arange(t * k, device=dev) // k
-    flat_w = topw.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    se, st_, sw = flat_e[order], flat_t[order], flat_w[order]
-    # rank within expert queue = position − start offset of that expert
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(t * k, device=dev) - starts[se]
-    keep = rank < c
-    slot = torch.where(keep, rank, c - 1)
-
-    # gather tokens into (E, C, d) expert buffers: each kept row has a slot
-    # of its own; a dropped row adds zeros to its expert's last slot
-    rows = torch.where(keep[:, None], xf[st_], torch.zeros((), dtype=x.dtype,
-                                                           device=dev))
-    rows = shard_act(rows, ("tokens", "embed"))
-    buf = torch.zeros((e, c, d), dtype=x.dtype, device=dev)
-    buf.index_put_((se, slot), rows, accumulate=True)
-    buf = shard_act(buf, ("experts", None, "embed"))
+    # gather tokens into (E, C, d) expert buffers
+    buf = shard_act(expert_buffers(xf, route), ("experts", None, "embed"))
 
     h = silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
     h = shard_act(h, ("experts", None, "expert_mlp"))
@@ -148,13 +204,11 @@ def moe_ffn(p, cfg, x: torch.Tensor):
     out_buf = shard_act(out_buf, ("experts", None, "embed"))
 
     # combine back to tokens, weighted by router prob
-    weight = torch.where(keep, sw, torch.zeros((), device=dev))
-    contrib = shard_act(out_buf[se, slot] * weight[:, None].to(x.dtype),
-                        ("tokens", "embed"))
-    yf = shard_act(combine(contrib, order, k), ("tokens", "embed"))
+    yf = shard_act(expert_combine(out_buf, topw, route), ("tokens", "embed"))
 
     if cfg.num_shared_experts:
         sp = p["shared"]
         sh = silu(xf @ sp["gate"]) * (xf @ sp["up"])
         yf = yf + sh @ sp["down"]
-    return yf.reshape(b, s, d), aux
+    # on a mesh the tokens may split where the batch does not
+    return split_dim(shard_act(yf, ("tokens", "embed")), 0, (b, s)), aux

@@ -21,7 +21,6 @@ O(1) state.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .layers import Params, gelu, shard_act, softplus
 
@@ -55,10 +54,12 @@ def _conv(cfg, p, x: torch.Tensor, conv_state: torch.Tensor | None = None):
     """Causal depthwise conv1d of width ``cfg.conv_width`` (no activation);
     ``conv_state``: the (B, W−1, C) history.  → (out, new history)."""
     w = cfg.conv_width
-    if conv_state is not None:
-        xin = torch.cat([conv_state, x], dim=1)
-    else:
-        xin = F.pad(x, (0, 0, w - 1, 0))
+    if conv_state is None:
+        # a zero history, joined by a cat: on a 2-d mesh torch 2.11's
+        # DTensor gives F.pad's output a single placement
+        conv_state = torch.zeros((x.shape[0], w - 1, x.shape[2]),
+                                 dtype=x.dtype, device=x.device)
+    xin = torch.cat([conv_state, x], dim=1)
     out = sum(xin[:, i:i + x.shape[1]] * p["conv_w"][i] for i in range(w))
     return (out + p["conv_b"]).to(x.dtype), xin[:, -(w - 1):]
 

@@ -21,7 +21,6 @@ sets it; the prefill cache holds it as f32 and decode's state is f32.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .layers import Params, rms_norm, shard_act, silu, softplus
 
@@ -68,10 +67,12 @@ def _conv(cfg, p, xbc: torch.Tensor, conv_state: torch.Tensor | None = None):
     """Depthwise causal conv1d (width W), then SiLU.  ``conv_state``: the
     (B, W−1, C) history.  → (out, new history)."""
     w = cfg.conv_width
-    if conv_state is not None:
-        xbc_in = torch.cat([conv_state, xbc], dim=1)
-    else:
-        xbc_in = F.pad(xbc, (0, 0, w - 1, 0))
+    if conv_state is None:
+        # a zero history, joined by a cat: on a 2-d mesh torch 2.11's
+        # DTensor gives F.pad's output a single placement
+        conv_state = torch.zeros((xbc.shape[0], w - 1, xbc.shape[2]),
+                                 dtype=xbc.dtype, device=xbc.device)
+    xbc_in = torch.cat([conv_state, xbc], dim=1)
     out = sum(xbc_in[:, i:i + xbc.shape[1]] * p["conv_w"][i]
               for i in range(w))
     return silu(out + p["conv_b"]).to(xbc.dtype), xbc_in[:, -(w - 1):]

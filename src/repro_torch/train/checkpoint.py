@@ -17,6 +17,17 @@ the reference's layout: dict keys sorted, ``OptState(step, mu, nu,
 master)`` fields in order, each layer group's leaves stacked on a leading
 axis — so either package restores a checkpoint the other wrote.
 
+A leaf is written and read one part at a time (a stacked leaf's layers
+through a memory-mapped file), so no copy of the whole state is ever
+made.  On a mesh (a model whose parameters are DTensors) every rank makes
+each part whole (``full_tensor``, a collective), rank 0 writes it and the
+others drop it at once, and all meet at a barrier, so the files are the
+one-device layout.  A restore reads, for each rank, only its own block of
+each part under the placements of ``like``'s DTensors, with no
+communication (the reference's ``restore(..., shardings=)``): a
+checkpoint moves from one device to a mesh, from a mesh to one device,
+and across rank counts.
+
 Fault-tolerance contract (as the reference's):
   * a crash mid-write leaves only a ``.tmp`` dir → ignored on restore;
   * ``restore_latest`` returns the newest *committed* step;
@@ -33,6 +44,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models import convert
 from .optimizer import OptState
@@ -45,22 +58,86 @@ def _model_of(state: dict):
     return models[0]
 
 
-def _reference_layout(state: dict, to) -> dict:
-    """The state as the reference's tree, each tensor mapped by ``to``
-    first (to the host to write it, to ``meta`` for shapes alone)."""
+def _sharded(state: dict) -> bool:
+    """Whether the state's model lives on a mesh (DTensor parameters)."""
+    return isinstance(next(_model_of(state).parameters()), DTensor)
+
+
+class _Leaf:
+    """One leaf of the reference's tree: the state's own tensors it is
+    made of, in order (a stacked leaf's layers; else one tensor)."""
+
+    def __init__(self, parts: list, stacked: bool):
+        self.parts, self.stacked = parts, stacked
+        self.dtype = parts[0].dtype
+        self.shape = (((len(parts),) if stacked else ()) +
+                      tuple(parts[0].shape))
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layout(state: dict) -> dict:
+    """The state as the reference's tree, each leaf a :class:`_Leaf` of
+    the state's tensors (no copies): the tree of each tensor list is the
+    reference tree of the lists' indices, so a leaf knows its parts."""
     model = _model_of(state)
+
+    def tree(ts):
+        ts = list(ts)
+        idx = convert.reference_tree(
+            model, [torch.tensor(i) for i in range(len(ts))])
+        return _map(idx, lambda ix: _Leaf(
+            [ts[i] for i in ix.reshape(-1).tolist()], ix.dim() > 0))
     out = {}
     for key, v in state.items():
         if isinstance(v, torch.nn.Module):
-            out[key] = convert.reference_tree(
-                v, [to(p.detach()) for p in v.parameters()])
+            out[key] = tree(v.parameters())
         elif isinstance(v, OptState):
-            out[key] = convert.reference_opt_tree(model, OptState(
-                to(v.step), [to(t) for t in v.mu], [to(t) for t in v.nu],
-                [to(t) for t in v.master]))
+            out[key] = (_Leaf([v.step], False), tree(v.mu), tree(v.nu),
+                        tree(v.master) if len(v.master) else ())
         else:
             raise TypeError(f"{key}: cannot checkpoint a {type(v).__name__}")
     return out
+
+
+def _block(shape: tuple, like: torch.Tensor) -> tuple:
+    """The index (a tuple of slices) of this rank's block of a whole leaf
+    of ``shape`` under a DTensor ``like``'s placements, each mesh dim in
+    order splitting the block it is given as ``torch.chunk`` does (as a
+    DTensor ``Shard`` splits); the whole leaf for a plain ``like``."""
+    lo, n = [0] * len(shape), list(shape)
+    if isinstance(like, DTensor):
+        mesh, coord = like.device_mesh, like.device_mesh.get_coordinate()
+        for i, p in enumerate(like.placements):
+            if p.is_shard():
+                d = p.dim
+                size = -(-n[d] // mesh.size(i))
+                a = min(coord[i] * size, n[d])
+                lo[d], n[d] = lo[d] + a, min(size, n[d] - a)
+    return tuple(slice(a, a + m) for a, m in zip(lo, n))
+
+
+def _read(src: np.ndarray, like: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """This rank's block of one whole part, ``src`` (a view of a
+    memory-mapped file), read alone into host memory."""
+    t = torch.from_numpy(np.array(src[_block(src.shape, like)]))
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def _restored(like: torch.Tensor, block: torch.Tensor, device):
+    """A new tensor like ``like`` holding ``block``: on a DTensor
+    ``like``'s mesh and placements (``block`` is this rank's own), else on
+    ``device`` (None: ``like``'s)."""
+    if not isinstance(like, DTensor):
+        return torch.empty(block.shape, dtype=like.dtype,
+                           device=device or like.device).copy_(block)
+    local = torch.empty_like(like.to_local()).copy_(block)
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              shape=like.shape, stride=like.stride())
 
 
 def _leaves(tree) -> list:
@@ -71,16 +148,6 @@ def _leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in _leaves(t)]
     return [tree]
-
-
-def _unflatten(tree, leaves):
-    """``tree``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
-    if isinstance(tree, (tuple, list)):
-        return tuple(_unflatten(t, leaves) for t in tree)
-    return next(leaves)
 
 
 def _structure(tree) -> str:
@@ -108,28 +175,65 @@ def _committed(ckpt_dir: str) -> list:
 
 
 def save(ckpt_dir: str, step: int, state: dict, *, keep: int = 3) -> str:
-    """Write one committed checkpoint; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write one committed checkpoint; returns its path.  A leaf is
+    written one part at a time (a stacked leaf's layers into a
+    memory-mapped file), so the host holds one part.  On a mesh every
+    rank calls it: each part is made whole (a collective), rank 0 writes
+    it and the others drop it at once, and none returns before the
+    commit."""
     name = f"step_{step:08d}"
-    tmp = os.path.join(ckpt_dir, name + ".tmp")
     final = os.path.join(ckpt_dir, name)
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-
-    tree = _reference_layout(state, lambda t: t.cpu())
+    tmp = final + ".tmp"
+    sharded = _sharded(state)
+    write = not sharded or dist.get_rank() == 0
+    if write:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    tree = _layout(state)
     leaves = _leaves(tree)
     manifest = {
         "step": step,
         "num_leaves": len(leaves),
         "treedef": f"PyTreeDef({_structure(tree)})",
-        "leaves": [],
+        "leaves": [_save_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), leaf,
+                              write) for i, leaf in enumerate(leaves)],
     }
-    for i, leaf in enumerate(leaves):
-        arr, logical_dtype = _to_numpy(leaf)
-        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
-        manifest["leaves"].append({"shape": list(arr.shape),
-                                   "dtype": logical_dtype})
+    if write:
+        _commit(ckpt_dir, name, manifest, keep)
+    if sharded:
+        dist.barrier()
+    return final
+
+
+def _save_leaf(path: str, leaf: _Leaf, write: bool):
+    """Write ``leaf`` to ``path`` part by part → its manifest entry (None
+    where this rank does not write)."""
+    arr, entry = None, None
+    for j, part in enumerate(leaf.parts):
+        part = part.detach()
+        if isinstance(part, DTensor):
+            part = part.full_tensor()
+        if not write:
+            continue
+        a, logical = _to_numpy(part.cpu())
+        entry = {"shape": list(leaf.shape), "dtype": logical}
+        if not leaf.stacked:
+            np.save(path, a)
+            continue
+        if arr is None:
+            arr = np.lib.format.open_memmap(path, mode="w+", dtype=a.dtype,
+                                            shape=leaf.shape)
+        arr[j] = a
+    if arr is not None:
+        arr.flush()
+    return entry
+
+
+def _commit(ckpt_dir: str, name: str, manifest: dict, keep: int) -> None:
+    tmp = os.path.join(ckpt_dir, name + ".tmp")
+    final = os.path.join(ckpt_dir, name)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -142,7 +246,6 @@ def save(ckpt_dir: str, step: int, state: dict, *, keep: int = 3) -> str:
 
     for old in _committed(ckpt_dir)[:-keep]:     # prune old committed steps
         shutil.rmtree(os.path.join(ckpt_dir, old), ignore_errors=True)
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -168,36 +271,50 @@ def restore(ckpt_dir: str, step: int, like: dict, *,
     returned; an ``OptState`` comes back as new tensors on ``device``
     (default: the model's device), each leaf in ``like``'s dtype.  On-disk
     arrays are whole and device-free, so a checkpoint restores onto any
-    device."""
+    device.  On a mesh (DTensor parameters; every rank calls it) each
+    parameter keeps its placements, each optimizer leaf takes those of
+    ``like``'s and a plain one (the step) ``like``'s device.  The files are mapped in memory and read one part at a
+    time, each rank reading only its own block of it, so a rank's host
+    and device hold its shards plus one block."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    tree = _reference_layout(like, lambda t: t.to("meta"))
+    tree = _layout(like)
     leaves = _leaves(tree)
     if manifest["num_leaves"] != len(leaves):
         raise ValueError(
             f"checkpoint has {manifest['num_leaves']} leaves, expected "
             f"{len(leaves)} — structure mismatch")
-    out = []
-    for i, ref in enumerate(leaves):
-        arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"leaf {i}: shape {arr.shape} != "
-                             f"{tuple(ref.shape)}")
-        t = torch.from_numpy(arr)
-        if manifest["leaves"][i]["dtype"] == "bfloat16":
-            t = t.view(torch.bfloat16)
-        out.append(t.to(ref.dtype))
-    loaded = _unflatten(tree, iter(out))
-    model = _model_of(like)
+    files = []
+    for i, leaf in enumerate(leaves):
+        arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"),
+                      mmap_mode="r")
+        if tuple(arr.shape) != leaf.shape:
+            raise ValueError(f"leaf {i}: shape {arr.shape} != {leaf.shape}")
+        files.append(arr)
+    files = iter(zip(files, manifest["leaves"]))
+    if device is not None:
+        device = torch.device(device)
+    elif not _sharded(like):
+        device = _model_of(like).device
     result = {}
-    for key, v in like.items():
-        if isinstance(v, torch.nn.Module):
-            result[key] = convert.load_reference_params(v, loaded[key])
-        else:
-            result[key] = convert.load_reference_opt_state(
-                model, loaded[key], device)
-    return result
+    for key in sorted(like):           # the leaves' order
+        v, new = like[key], {}
+        for leaf in _leaves(tree[key]):
+            arr, meta = next(files)
+            bf16 = meta["dtype"] == "bfloat16"
+            for j, part in enumerate(leaf.parts):
+                block = _read(arr[j] if leaf.stacked else arr, part, bf16)
+                if isinstance(v, torch.nn.Module):
+                    with torch.no_grad():
+                        (part.to_local() if isinstance(part, DTensor)
+                         else part).copy_(block)
+                else:
+                    new[id(part)] = _restored(part, block, device)
+        result[key] = v if isinstance(v, torch.nn.Module) else OptState(
+            new[id(v.step)], *([new[id(t)] for t in ts]
+                               if len(ts) else () for ts in v[1:]))
+    return {key: result[key] for key in like}
 
 
 def restore_latest(ckpt_dir: str, like: dict, *, device=None):

@@ -6,8 +6,8 @@ the port keeps its own copy).
   * :class:`PreemptionGuard` — SIGTERM/SIGINT → finish the in-flight step,
     checkpoint, exit cleanly.  The training loop polls ``should_stop``.
   * :func:`elastic_restore` — restore the latest checkpoint onto whatever
-    device the caller now trains on: checkpoints hold whole, device-free
-    arrays (``train/checkpoint.py``).
+    device or mesh the caller now trains on, of any rank count:
+    checkpoints hold whole, device-free arrays (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ class PreemptionGuard:
 
 
 def elastic_restore(ckpt_dir: str, like, device=None):
-    """Restore the latest committed step onto ``device`` (which may differ
-    from the device that saved it) → (state, step) or (None, -1)."""
+    """Restore the latest committed step onto ``device``, or onto the mesh
+    of ``like``'s DTensors (the reference's ``shardings=``), which may
+    differ from the device or mesh that saved it → (state, step) or
+    (None, -1)."""
     return ckpt_lib.restore_latest(ckpt_dir, like, device=device)

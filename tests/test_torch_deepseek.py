@@ -509,6 +509,51 @@ def test_moe_capacity_is_per_call_like_the_reference_s(arch):
             assert jerr[0] < 1e-4 and max(terr) < 1e-4, (jerr, terr)
 
 
+def test_mtp_head_skips_two_norms_like_the_reference_s():
+    """The reference's MTP loss (``DecoderLM.loss``,
+    ``src/repro/models/transformer.py:303-316``) RMS-norms the final state
+    but not the next token's embedding, and sends the head block's output
+    to the tied head with no final norm; DeepSeek-V3 (arXiv:2412.19437
+    §2.2) norms both inputs of the projection, and the main path norms
+    with ``final_norm`` before the head.  The port copies it (ROADMAP §3):
+    float32, the reference's parameters, the loss with ``labels_mtp``:
+    the port's ``ce_mtp`` equals the reference's and the head rebuilt
+    without the two norms, while the head rebuilt with them (an
+    identity-weight RMS norm of the embedding, ``final_norm`` on the
+    output) moves ``ce_mtp`` by more than 1e-2, and the embedding rows
+    that enter the projection are not of unit RMS."""
+    from repro_torch.models.layers import (cross_entropy, embed,
+                                           logits_from_tied)
+    r = smoke_run("deepseek_v3_671b", "float32")
+    model, batch = r["model"], r["batch"]
+    cfg, mtp = model.cfg, model.mtp
+    with torch.no_grad():
+        _, metrics = model.loss(batch)
+        h, _ = model.hidden_states(batch)
+        labels = torch.as_tensor(batch["labels"]).long()
+        emb = embed(model.embedding, labels.clamp(min=0))
+        positions = torch.arange(h.shape[1]).expand(h.shape[0], -1)
+
+        def ce_mtp(norm_emb: bool, norm_out: bool) -> float:
+            e = rms_norm(emb, torch.zeros(cfg.d_model), cfg.norm_eps) \
+                if norm_emb else emb
+            out = mtp.block(torch.cat([rms_norm(h, mtp.norm, cfg.norm_eps),
+                                       e], dim=-1) @ mtp.proj, positions)
+            if norm_out:
+                out = rms_norm(out, model.final_norm, cfg.norm_eps)
+            return float(cross_entropy(
+                logits_from_tied(model.embedding, out, cfg.vocab_size),
+                torch.as_tensor(batch["labels_mtp"])))
+
+        as_reference, with_norms = ce_mtp(False, False), ce_mtp(True, True)
+        rms = emb.square().mean(-1).sqrt()
+    assert_close(metrics["ce_mtp"], r["met"]["ce_mtp"], "float32", "ce_mtp")
+    assert abs(as_reference - float(metrics["ce_mtp"])) <= 1e-5 * max(
+        1.0, as_reference)
+    assert abs(with_norms - as_reference) > 1e-2, (with_norms, as_reference)
+    assert float((rms - 1).abs().max()) > 0.1
+
+
 # ---------------------------------------------------------------------------
 # expert-utilisation masks
 # ---------------------------------------------------------------------------
