@@ -2,10 +2,11 @@
 
     python3 chip_phases.py [--root DIR] PHASE [PHASE ...]
 
-PHASE is one of 10, 11, 12, 13 and 14 (the mask producers, training, the
-recurrent and encoder-decoder producers, the DeepSeek family, the mesh:
-the dry-run, the MaskSearch cells and every family's sharded steps and
-checkpoint on a one-card mesh).  The
+PHASE is one of 10 to 16 (the mask producers, training, the recurrent
+and encoder-decoder producers, the DeepSeek family, the mesh: the
+dry-run, the MaskSearch cells and every family's sharded steps and
+checkpoint on a one-card mesh; codeqwen1.5-7b, qwen3-32b, gemma3-27b
+and internvl2-1b; the paper's quickstart and scenarios 2-6).  The
 script loads ``DIR/chip_smoke.py`` (default: the checkout beside this
 script) with ``DIR/src`` on the path, builds that checkout's kernels, and
 calls the phases' functions as ``chip_smoke.py`` does, so they print
@@ -25,7 +26,8 @@ import sys
 import time
 
 PHASES = {10: "producer_phase", 11: "training_phase", 12: "other_phase",
-          13: "deepseek_phase", 14: "mesh_phase14"}
+          13: "deepseek_phase", 14: "mesh_phase14", 15: "dense_phase",
+          16: "examples_phase"}
 
 
 def main(argv=None) -> int:
@@ -56,8 +58,10 @@ def main(argv=None) -> int:
     for p in args.phases:
         t0 = time.perf_counter()
         dev = torch.device("cuda")
-        # phase 14 takes the kernels' launch counters too
-        args = (torch, dev, ops, smi) if p == 14 else (torch, dev, smi)
+        # phase 14 takes the kernels' launch counters too, phase 16 only
+        # them
+        args = {14: (torch, dev, ops, smi), 16: (torch, ops, smi)}.get(
+            p, (torch, dev, smi))
         getattr(smoke, PHASES[p])(*args)
         print(f"chip_phases: phase {p} {time.perf_counter() - t0:.1f} s",
               flush=True)

@@ -9,7 +9,11 @@
                                # whisper-large-v3 and deepseek-v2-236b
                                # (8 of 60 layers) serving and making masks,
                                # then the dry-run, the MaskSearch mesh
-                               # cells and granite on a (1, 1) mesh
+                               # cells and granite on a (1, 1) mesh,
+                               # then codeqwen1.5-7b, qwen3-32b,
+                               # gemma3-27b and internvl2-1b serving and
+                               # making masks, then the quickstart and
+                               # scenarios 2-6 on the card and the CPU
 
 Phases, each of which raises on failure (non-zero exit, no result line):
 
@@ -180,7 +184,33 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    cut, 2 steps on the mesh, a checkpoint saved from it and restored on
    one device (every leaf equal), a third step there, equal to 3
    uninterrupted steps (``mesh decode``, ``mesh train`` and ``mesh
-   ckpt`` lines with ms and peak GB).
+   ckpt`` lines with ms and peak GB);
+15. the last dense configurations (``dense …`` lines): codeqwen1.5-7b
+   (MHA), qwen3-32b (64 layers, qk-norm), gemma3-27b (5:1 local:global,
+   window 1,024, two RoPE θs, qk-norm, √d embedding scale) and
+   internvl2-1b (256 patches ahead of the tokens) at full width and
+   depth in bf16 (random weights, generator seed 0), one after another:
+   first a float32 cut at full width (2 layers; gemma3 one whole group
+   of 6) held to teacher forcing and to the CPU, and for gemma3 2 local
+   layers over 1,088 tokens against the CPU (the last 64 positions'
+   logits and the attention maps, zero outside the window); then the
+   model, its parameter count equal to the reference's, ``launch/
+   serve.py``'s prefill of 8 x 128 tokens (internvl2 with its patches)
+   and 32 greedy decode steps beside the decode bound; 1,024 / 512 / 512
+   / 2,048 masks harvested (cut from 2,048 / 1,024 / 1,024 / 4,096 for
+   the smoke's time; the last attention layer's maps;
+   internvl2's text rows over its patch columns, on the 16 x 16 patch
+   grid) and phase 10's index-and-query window over them (``dense
+   <model> launches`` and ``dense <model> parity`` lines);
+16. the paper's entry points (``example …`` lines): ``examples/
+   quickstart_torch.py`` and scenarios 2-6's ports, each in-process on
+   the card and again with ``--device cpu`` (scenario 4 with
+   ``--explain`` on the host, device and mesh backends, scenario 5 on
+   the host and device backends), the two stdouts equal with the
+   clock's readings masked (``clock_masked``) and at least one kernel
+   launched on the card; then scenario 5 at 16,384 masks of 224x224 on
+   the device and the host backend, every line but the backend's name
+   equal.
 
 Kernel launch counters are zeroed just before each main path (phases 2-3,
 indexed queries only; phases 6 and 8, naive scans included, since they
@@ -205,8 +235,9 @@ largest per-shard call of each such kernel is held against the kernel's
 plain version at tolerance 0 once the window closes (``mesh parity``
 lines).
 The script prints the build, the card, the launch floor (the device time
-of an empty kernel), per-query times and stats, a
-``{"kernels": [...]}`` line and, last, the result line
+of an empty kernel), per-query times and stats, its own wall time, a
+``{"kernels": [...]}`` line (each entry's ``windows``: its launches in
+each window of phases 15 and 16) and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it; without either it exits non-zero.
 """
@@ -219,6 +250,7 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -319,6 +351,20 @@ KERNEL_INFO = {
 }
 
 STAT_FIELDS = ("n_candidates", "n_decided_by_bounds", "n_verified", "n_rounds")
+
+
+# the readings of the clock in the examples' output: EXPLAIN ANALYZE's
+# ``*time_s=`` fields and scenario 4's ``--explain`` phase lines
+CLOCK_FIELD = re.compile(r"\b(\w*time_s)=[-+.\deE]+")
+CLOCK_LINE = re.compile(r"^(\s*phases: ).*$", re.M)
+
+
+def clock_masked(text: str) -> str:
+    """An example's stdout with the clock's readings masked; every other
+    character (ids, counts, MB loaded, precision, modeled EBS seconds)
+    stays."""
+    return CLOCK_LINE.sub(r"\1<clock>", CLOCK_FIELD.sub(r"\1=<clock>",
+                                                       text))
 
 
 def fail(msg: str) -> None:
@@ -1638,9 +1684,10 @@ def q_histogram(passes) -> str:
     return ", ".join(f"Q={q}: {n}" for q, n in sorted(counts.items()))
 
 
-def close_window(ops, label, needed, t0, kind="service") -> None:
+def close_window(ops, label, needed, t0, kind="service") -> dict:
     """Read the launch counters a service or mesh window zeroed at its
-    start; every kernel of ``needed`` must have launched in it."""
+    start; every kernel of ``needed`` must have launched in it.  Returns
+    the counts."""
     counts = ops.launch_counts()
     print(f"{kind} launches {label}: "
           + json.dumps({k: v for k, v in counts.items() if v}))
@@ -1648,6 +1695,7 @@ def close_window(ops, label, needed, t0, kind="service") -> None:
         if counts[k] <= 0:
             fail(f"kernel {k} was not launched in the {label} {kind} window")
     print(f"{kind} phase {label}: {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def workload_answers(tq, store, sqls, rois) -> list:
@@ -2160,7 +2208,7 @@ def index_and_query(torch, dev, masks, n_first, kind, smi):
     (``check_split``); the window's largest
     ``chi_cell_hist``, ``cp_count_multi`` and ``cp_count`` calls held
     against their plain versions (``{kind} parity``).  Returns the store,
-    the results and the provided ROIs."""
+    the results, the provided ROIs and the window's launch counts."""
     from repro_torch.core import CHIConfig, MaskStore
     from repro_torch.core import queries as tq
     from repro_torch.core.store import MASK_META_DTYPE
@@ -2184,7 +2232,8 @@ def index_and_query(torch, dev, masks, n_first, kind, smi):
     results = run_queries(torch, tq, ops, store, sqls, provided, f"{kind} ")
     naive = naive_scans(torch, tq, ops, store, sqls, provided)
     undo()
-    close_window(ops, "index+query", PRODUCER_KERNELS, t0, kind=kind)
+    counts = close_window(ops, "index+query", PRODUCER_KERNELS, t0,
+                          kind=kind)
     check_answers(results, naive, sqls, f"{kind} ")
     check_split(results, masks, *cuts, kind)
     for name in PRODUCER_KERNELS:
@@ -2192,7 +2241,7 @@ def index_and_query(torch, dev, masks, n_first, kind, smi):
             fail(f"{kind}: {name} was never called")
         mesh_parity(torch, ops, name, largest[name][1], f"{kind} window",
                     smi, kind=kind)
-    return store, results, provided
+    return store, results, provided, counts
 
 
 def stack_loss(m, b, emb):
@@ -2383,9 +2432,8 @@ def producer_phase(torch, dev, smi) -> None:
     torch.cuda.empty_cache()
 
     # -- 10d-e. index, then query: one launch window -------------------------
-    store, results, provided = index_and_query(torch, dev, masks,
-                                               N_PRODUCED_FIRST, "producer",
-                                               smi)
+    store, results, provided, _ = index_and_query(
+        torch, dev, masks, N_PRODUCED_FIRST, "producer", smi)
     sample = slice(0, 64)
     chi_cfg = CHIConfig(grid=16, num_bins=16, height=H, width=W)
     want = build_chi_np(masks[N_PRODUCED_FIRST:][sample], chi_cfg)
@@ -2673,8 +2721,8 @@ def training_phase(torch, dev, smi) -> None:
     print(f"loop harvest: {LOOP_MASKS} masks {H}x{W} from the trained model "
           f"in {harvest_s:.3f} s ({LOOP_MASKS / harvest_s:.1f} masks/s)")
 
-    store, results, _ = index_and_query(torch, dev, masks, LOOP_FIRST,
-                                        "loop", smi)
+    store, results, _, _ = index_and_query(torch, dev, masks, LOOP_FIRST,
+                                           "loop", smi)
 
     ids = np.asarray(results[("scenario1_topk", "device")][0][0])
     rows = store.positions_of(ids)
@@ -2779,15 +2827,54 @@ def other_prompt(serve, cfg):
     return serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
 
 
-def other_cut_checks(torch, cfg, dev, smi) -> None:
-    """``producer_cut_checks``' pattern for the other families: a float32
-    cut at full width (recurrentgemma 3 layers, one whole group, so that
-    it holds its local attention layer; mamba2 2 layers; whisper 2 + 2),
+def serve_check(torch, model, cfg, dev, kind, smi) -> None:
+    """``launch/serve.py``'s prefill of ``other_prompt`` and 32 greedy
+    decode steps (after a warm-up), printed beside the decode bound: the
+    bytes of the weights, caches and states a step reads at 3.35 TB/s
+    (``decode_bytes``, over ``greedy_generate``'s own cache: prompt + gen
+    slots, a VLM's patches not counted, as the reference CLI sizes it;
+    ROADMAP §3).  The logits must be finite."""
+    from repro_torch.launch import serve
+    prompt = other_prompt(serve, cfg)
+    serve.greedy_generate(model, prompt, 2)              # warm-up
+    out = serve.greedy_generate(model, prompt, SERVE_STEPS + 1)
+    if not out["finite"]:
+        fail(f"{cfg.name} serve: non-finite logits")
+    b, p_len = prompt["tokens"].shape
+    p0 = cfg.num_patches or 0
+    cache = (model.init_cache(b, enc_len=WHISPER_FRAMES)
+             if cfg.is_encoder_decoder else
+             model.init_cache(b, p_len + SERVE_STEPS + 1))
+    bound_ms = float(np.mean([decode_bytes(model, cache, pos)
+                              for pos in range(p0 + p_len,
+                                               p0 + p_len + SERVE_STEPS)])
+                     ) / PEAK_BYTES_S * 1e3
+    del cache
+    step_ms = out["decode_s"] / SERVE_STEPS * 1e3
+    ahead = (f"{WHISPER_FRAMES} frames + " if cfg.is_encoder_decoder else
+             f"{p0} patches + " if p0 else "")
+    print(f"{kind} serve {cfg.name}: prefill {b}x({ahead}{p_len} tokens) "
+          f"{out['prefill_s'] * 1e3:.3f} ms; {SERVE_STEPS} greedy decode "
+          f"steps x{b}: {step_ms:.3f} ms a step, "
+          f"{SERVE_STEPS * b / out['decode_s']:.1f} tok/s (bound "
+          f"{bound_ms:.3f} ms a step: the weights it reads, the caches "
+          f"up to the step's position and the states at 3.35 TB/s); "
+          f"logits finite; sample {out['tokens'][0, :8].tolist()}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
+
+
+def other_cut_checks(torch, cfg, dev, smi, kind="other") -> None:
+    """``producer_cut_checks``' pattern for the other families and the
+    dense configs of phase 15: a float32 cut at full width (one whole
+    group of a layer pattern, so that it holds every kind of layer:
+    recurrentgemma 3 layers, gemma3 6; else 2 layers, whisper 2 + 2),
     random weights from generator seed 1 with ``wq``/``wk`` at 1/8 of the
     init scale: prefill + 8 decode steps against teacher forcing (2e-2,
     as the reference's test), then the card against the CPU with the same
     weights, TF32 off: logits (1e-4 of their scale) and the family's mask
-    source (attention maps and cross maps 1e-5, input saliency 1e-4)."""
+    source (attention maps and cross maps 1e-5, input saliency 1e-4).  A
+    VLM's prompt carries its patches ahead of the tokens: logits and maps
+    cover them, and token ``t`` sits at position ``num_patches + t``."""
     import dataclasses
     from repro_torch.core import saliency
     from repro_torch.launch import serve
@@ -2797,8 +2884,9 @@ def other_cut_checks(torch, cfg, dev, smi) -> None:
         cut = dataclasses.replace(cfg, num_layers=2, enc_layers=2,
                                   dec_layers=2, dtype="float32")
     else:
-        cut = dataclasses.replace(cfg, num_layers=3 if "rglru" in
-                                  cfg.layer_pattern else 2, dtype="float32")
+        group = len(cfg.layer_pattern)
+        cut = dataclasses.replace(cfg, num_layers=group if group > 1 else 2,
+                                  dtype="float32")
     card = build_model(cut, dev).init(torch.Generator(dev).manual_seed(1))
     with torch.no_grad():
         for name, p in card.named_parameters():
@@ -2831,16 +2919,17 @@ def other_cut_checks(torch, cfg, dev, smi) -> None:
     full = logits(card, batch)
     prompt = {k: (v[:, :16] if k == "tokens" else v) for k, v in
               batch.items()}
+    p0 = cut.num_patches or 0
     if cut.is_encoder_decoder:
         cache = card.init_cache(2, enc_len=batch["audio_feats"].shape[1])
     else:
-        cache = card.init_cache(2, 32)
+        cache = card.init_cache(2, p0 + 32)
     lp, cache = card.prefill(prompt, cache)
-    steps = [(lp[:, 0], full[:, 15])]
+    steps = [(lp[:, 0], full[:, p0 + 15])]
     for pos in range(16, 24):
         ld, cache = card.decode_step(cache, batch["tokens"][:, pos:pos + 1],
-                                     pos)
-        steps.append((ld[:, 0], full[:, pos]))
+                                     p0 + pos)
+        steps.append((ld[:, 0], full[:, p0 + pos]))
     err = max(float((got - want).abs().max()) for got, want in steps)
     if not all(bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
                for got, want in steps):
@@ -2858,25 +2947,51 @@ def other_cut_checks(torch, cfg, dev, smi) -> None:
              f"(logits {e_logits} at scale {scale}, {what} {e_map})")
     if not float(got_map.max()) > 0:
         fail(f"{cfg.name}: the cut's {what} is all zero")
-    print(f"other check {cfg.name}: {cut.num_layers}-layer float32 cut at "
-          f"full width: prefill + 8 decode steps equal teacher forcing (max "
-          f"err {err:.3e}, rtol = atol = 2e-2); card vs CPU max err logits "
+    patches = f", {p0} patches ahead of the tokens" if p0 else ""
+    depth = (f"{cut.enc_layers} + {cut.dec_layers}-layer float32 cut (of "
+             f"{cfg.enc_layers} + {cfg.dec_layers})" if cut.is_encoder_decoder
+             else f"{cut.num_layers}-layer float32 cut ("
+             f"{'/'.join(cut.pattern_layers)}; of {cfg.num_layers})")
+    print(f"{kind} check {cfg.name}: {depth} at full width{patches}: "
+          f"prefill + 8 decode steps equal teacher forcing (max err "
+          f"{err:.3e}, rtol = atol = 2e-2); card vs CPU max err logits "
           f"{e_logits:.3e} (scale {scale:.1f}, atol 1e-4 of it), {what} "
-          f"{e_map:.3e} (atol {tol:g}), TF32 off ({smi})")
+          f"{tuple(got_map.shape)} {e_map:.3e} (atol {tol:g}), TF32 off "
+          f"({smi})")
 
 
-def other_harvest(torch, model, cfg, arch, dev, n=None):
+def other_harvest(torch, model, cfg, arch, dev, n=None, bs=None):
     """``n`` (default ``OTHER_MASKS[arch]``) of the family's masks as its
-    source makes them, in batches →
-    (host float32 (n, 224, 224), seconds, what): recurrentgemma's last
-    local layer (``attention_maps``, window 2048 > 224) head-averaged;
-    mamba2's ``input_saliency`` on a 16 x 14 grid resized; whisper's
+    source makes them, in batches of ``bs`` (default ``OTHER_BATCH[arch]``)
+    → (host float32 (n, 224, 224), seconds, what): the last attention
+    layer's maps head-averaged (recurrentgemma's last local layer, window
+    2048 > 224; the dense decoders' last layer); mamba2's
+    ``input_saliency`` on a 16 x 14 grid resized; whisper's
     ``cross_attention_maps`` (448 tokens x 1,500 frames) head-averaged
-    and resized.  Batches come through ``PrefetchIterator``."""
+    and resized; for a VLM (internvl2, whose patches precede the tokens)
+    where the text looks in the image: the text rows' attention over the
+    patch columns, averaged over heads and rows, ``normalize01``, laid on
+    the square patch grid (``tokens_to_grid``) and resized.  Batches come
+    through ``PrefetchIterator``."""
     from repro_torch.core import saliency
     from repro_torch.data.pipeline import PrefetchIterator, SyntheticLMData
-    n, bs = n or OTHER_MASKS[arch], OTHER_BATCH[arch]
-    if cfg.is_encoder_decoder:
+    n, bs = n or OTHER_MASKS[arch], bs or OTHER_BATCH[arch]
+    p0 = cfg.num_patches or 0
+    if p0:
+        data = SyntheticLMData(cfg, H, bs, seed=0)
+        source = (data.batch_at(i) for i in range(n // bs))
+        side = int(round(p0 ** 0.5))
+
+        def masks_of(b):
+            text = model.attention_maps(b)[:, :, p0:, :p0]
+            grid = saliency.tokens_to_grid(saliency.normalize01(
+                text.mean(dim=(1, 2)), axis=(-1,)), side, side)
+            return saliency.resize_mask(grid, H, W)
+        what = (f"attention_maps (B, {cfg.num_heads}, {p0} + {H}, {p0} + "
+                f"{H}) -> text rows x patch columns, mean over heads and "
+                f"rows -> normalize01 -> tokens_to_grid {side}x{side} -> "
+                f"resize_mask {H}x{W}")
+    elif cfg.is_encoder_decoder:
         data = SyntheticLMData(cfg, WHISPER_FRAMES, bs, seed=0)
         source = (data.batch_at(i) for i in range(n // bs))
 
@@ -2904,8 +3019,10 @@ def other_harvest(torch, model, cfg, arch, dev, n=None):
                 return saliency.last_layer_attention(model.attention_maps(b))
             last = max(i for i, k in enumerate(model.kinds)
                        if k in ("global", "local"))
-            what = (f"attention_maps of layer {last} ({model.kinds[last]}, "
-                    f"window {cfg.local_window}) -> last_layer_attention")
+            window = (f", window {cfg.local_window}"
+                      if model.kinds[last] == "local" else "")
+            what = (f"attention_maps of layer {last} ({model.kinds[last]}"
+                    f"{window}) -> last_layer_attention")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = torch.cat([masks_of(b) for b in PrefetchIterator(source, depth=2)])
@@ -2948,37 +3065,12 @@ def other_phase(torch, dev, smi) -> None:
               f"{cfg.dtype}: {n_params:,} parameters, {n_bytes:,} B; random "
               f"init {time.perf_counter() - t0:.1f} s ({smi})")
 
-        # -- serve: prefill, then greedy decode ------------------------------
-        prompt = other_prompt(serve, cfg)
-        serve.greedy_generate(model, prompt, 2)              # warm-up
-        out = serve.greedy_generate(model, prompt, SERVE_STEPS + 1)
-        if not out["finite"]:
-            fail(f"{cfg.name} serve: non-finite logits")
-        b, p_len = prompt["tokens"].shape
-        cache = (model.init_cache(b, enc_len=WHISPER_FRAMES)
-                 if cfg.is_encoder_decoder else
-                 model.init_cache(b, p_len + SERVE_STEPS + 1))
-        bound_ms = float(np.mean([decode_bytes(model, cache, pos)
-                                  for pos in range(p_len,
-                                                   p_len + SERVE_STEPS)])
-                         ) / PEAK_BYTES_S * 1e3
-        del cache
-        step_ms = out["decode_s"] / SERVE_STEPS * 1e3
-        frames = (f"{WHISPER_FRAMES} frames + " if cfg.is_encoder_decoder
-                  else "")
-        print(f"other serve {cfg.name}: prefill {b}x({frames}{p_len} tokens) "
-              f"{out['prefill_s'] * 1e3:.3f} ms; {SERVE_STEPS} greedy decode "
-              f"steps x{b}: {step_ms:.3f} ms a step, "
-              f"{SERVE_STEPS * b / out['decode_s']:.1f} tok/s (bound "
-              f"{bound_ms:.3f} ms a step: the weights it reads, the caches "
-              f"up to the step's position and the states at 3.35 TB/s); "
-              f"logits finite; sample "
-              f"{out['tokens'][0, :8].tolist()} ({smi})")
+        serve_check(torch, model, cfg, dev, "other", smi)
         other_cut_checks(torch, cfg, dev, smi)
 
         # -- harvest ---------------------------------------------------------
         if arch == "mamba2_13b" and model.attention_maps(
-                {"tokens": prompt["tokens"][:1, :8]}) is not None:
+                serve.prompt_batch(cfg, 1, 8)) is not None:
             fail("mamba2: attention_maps of an attention-free stack is not "
                  "None")
         model.requires_grad_(False)
@@ -2995,7 +3087,7 @@ def other_phase(torch, dev, smi) -> None:
               f"({n / harvest_s:.1f} masks/s); values in [{masks.min()}, "
               f"{masks.max()}]; peak "
               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
-        del model, out
+        del model
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4028,7 +4120,259 @@ def mesh_phase14(torch, dev, ops, smi) -> dict:
     return launches
 
 
+# -- 15. the last dense configurations: codeqwen, qwen3, gemma3, internvl2 ---
+
+# full width and depth, bf16, random weights; the parameter counts are
+# jax.eval_shape's of the JAX package's init (tests/test_torch_models.py
+# holds the port's counts and leaf shapes to it)
+DENSE_ARCHS = ("codeqwen15_7b", "qwen3_32b", "gemma3_27b", "internvl2_1b")
+DENSE_PARAMS = {"codeqwen15_7b": 7_811_108_864,
+                "qwen3_32b": 31_984_210_944,
+                "gemma3_27b": 27_008_335_616,
+                "internvl2_1b": 493_775_744}
+# masks harvested: 4,096 / 2,048 / 1,024 / 1,024 by the cost of a pass (a
+# 224-token pass of qwen3 or gemma3 is about 2 x 32 G FLOP a token), each
+# halved so that phases 15 and 16 stay near 250 s of the smoke's 1,200
+DENSE_MASKS_CUT_FROM = {"codeqwen15_7b": 2048, "qwen3_32b": 1024,
+                        "gemma3_27b": 1024, "internvl2_1b": 4096}
+DENSE_MASKS = {arch: n // 2 for arch, n in DENSE_MASKS_CUT_FROM.items()}
+DENSE_BATCH = {"codeqwen15_7b": 64, "qwen3_32b": 32, "gemma3_27b": 32,
+               "internvl2_1b": 64}
+WINDOW_SEQ, WINDOW_TAIL = 1088, 64      # gemma3's window check: 1,024 + 64
+
+
+def gemma_window_check(torch, cfg, dev, smi) -> None:
+    """gemma3's 1,024-token local window at its real size: a float32 cut
+    of 2 local layers at full width (generator seed 1, ``wq``/``wk`` at
+    1/8), one sequence of 1,088 tokens, so that the last 64 queries lose
+    their first keys to the window.  The card against the CPU with the
+    same weights: the last 64 positions' logits (the tied head on those
+    rows only; 1e-4 of their scale) and the last local layer's attention
+    maps (1e-5), whose weights on keys 1,024 or more behind the query are
+    exactly 0 and on the rest of the window not all 0."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import logits_from_tied
+    cut = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    if cut.pattern_layers != ("local", "local"):
+        fail(f"{cfg.name}: the window cut is {cut.pattern_layers}")
+    card = build_model(cut, dev).init(torch.Generator(dev).manual_seed(1))
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            if name.endswith(("wq", "wk")):
+                p.mul_(0.125)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                               (1, WINDOW_SEQ))
+    batch = {"tokens": tokens}
+    cpu = build_model(cut, "cpu")
+    cpu.load_state_dict(card.state_dict())
+
+    def tail_logits(m):
+        with torch.no_grad():
+            h = m.hidden_states(batch)[0][:, -WINDOW_TAIL:]
+            return logits_from_tied(m.embedding, h, cut.vocab_size)[
+                ..., :cut.vocab_size]
+    t0 = time.perf_counter()
+    got, want = tail_logits(card), tail_logits(cpu)
+    maps, cpu_maps = card.attention_maps(batch), cpu.attention_maps(batch)
+    cpu_s = time.perf_counter() - t0
+    scale = max(1.0, float(want.abs().max()))
+    e_logits = float((got.cpu() - want).abs().max())
+    e_maps = float((maps.cpu() - cpu_maps).abs().max())
+    w = cut.local_window
+    q = torch.arange(WINDOW_SEQ, device=dev)[:, None]
+    k = torch.arange(WINDOW_SEQ, device=dev)[None, :]
+    outside = (k <= q - w)[None, None].expand_as(maps)
+    inside = ((k > q - w) & (k <= q))[None, None].expand_as(maps)
+    masked = int(outside.sum()) // maps.shape[1]
+    if (e_logits > 1e-4 * scale or e_maps > 1e-5 or
+            float(maps[outside].abs().max()) != 0 or
+            not bool((maps[inside] > 0).any())):
+        fail(f"{cfg.name}: the 1,024-token window check fails (logits "
+             f"{e_logits} at scale {scale}, maps {e_maps}, outside the "
+             f"window {float(maps[outside].abs().max())})")
+    print(f"dense window {cfg.name}: 2 local layers (window {w}) float32 at "
+          f"full width, 1 x {WINDOW_SEQ} tokens ({masked:,} query-key pairs "
+          f"a head masked by the window): card vs CPU max err, last "
+          f"{WINDOW_TAIL} positions' logits {e_logits:.3e} (scale "
+          f"{scale:.1f}, atol 1e-4 of it), last local layer's attention "
+          f"maps {tuple(maps.shape)} {e_maps:.3e} (atol 1e-5); weights "
+          f"outside the window exactly 0; {cpu_s:.1f} s with the CPU side "
+          f"({smi})")
+    del card, cpu, maps, cpu_maps
+
+
+def dense_phase(torch, dev, smi) -> dict:
+    """Phase 15: codeqwen1.5-7b, qwen3-32b, gemma3-27b and internvl2-1b at
+    full width and depth (bf16, random weights from generator seed 0), one
+    after another: the float32 cut's checks (gemma3 also its window at
+    1,088 tokens) before the model is built, so that qwen3's 63.97 GB and
+    its cut never share the card; then build and count, serve (prefill 8 x
+    128, internvl2 with its 256 patches, and 32 greedy decode steps),
+    harvest masks, and phase 10's index-and-query window over them.
+    Returns each window's launch counts."""
+    import gc
+    from repro_torch.configs import load_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import count_params
+
+    t_phase = time.perf_counter()
+    windows = {}
+    for arch in DENSE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_arch = time.perf_counter()
+        cfg = load_arch(arch)
+        other_cut_checks(torch, cfg, dev, smi, kind="dense")
+        if cfg.local_window:
+            gemma_window_check(torch, cfg, dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"dense {cfg.name} checks: {time.perf_counter() - t_arch:.1f} "
+              f"s", flush=True)
+
+        t0 = time.perf_counter()
+        model = build_model(cfg, dev).init(torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = count_params(model)
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        if n_params != DENSE_PARAMS[arch]:
+            fail(f"{cfg.name}: {n_params:,} parameters, the reference's "
+                 f"init has {DENSE_PARAMS[arch]:,}")
+        print(f"dense model {cfg.name}: {cfg.num_layers} layers "
+              f"{'/'.join(cfg.layer_pattern)}, d_model {cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+              f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+              f"{n_params:,} parameters (the reference's), {n_bytes:,} B; "
+              f"random init {time.perf_counter() - t0:.1f} s ({smi})")
+        serve_check(torch, model, cfg, dev, "dense", smi)
+
+        # -- harvest ---------------------------------------------------------
+        n = DENSE_MASKS[arch]
+        masks, harvest_s, what = other_harvest(torch, model, cfg, arch, dev,
+                                               n, DENSE_BATCH[arch])
+        if masks.shape != (n, H, W) or masks.dtype != np.float32:
+            fail(f"{cfg.name}: masks {masks.shape} {masks.dtype}")
+        if not (np.isfinite(masks).all() and masks.min() >= 0 and
+                masks.max() < 1):
+            fail(f"{cfg.name}: masks are not finite values in [0, 1)")
+        print(f"dense harvest {cfg.name}: {n} masks {H}x{W} float32 (cut "
+              f"from {DENSE_MASKS_CUT_FROM[arch]}; phase 10 takes "
+              f"{N_PRODUCED}) via {what}, {DENSE_BATCH[arch]} a "
+              f"batch, in {harvest_s:.3f} s ({n / harvest_s:.1f} masks/s); "
+              f"values in [{masks.min()}, {masks.max()}]; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB ({smi})")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- index, then query: one launch window ----------------------------
+        kind = f"dense {cfg.name}"
+        windows[kind] = index_and_query(torch, dev, masks, n // 2, kind,
+                                        smi)[3]
+        print(f"dense {cfg.name}: {time.perf_counter() - t_arch:.1f} s",
+              flush=True)
+    print(f"dense phase: {time.perf_counter() - t_phase:.1f} s")
+    return windows
+
+
+# -- 16. the paper's entry points: the quickstart and scenarios 2-6 ----------
+
+# (script, arguments): each runs on the card and again with --device cpu
+EXAMPLE_RUNS = (
+    ("quickstart_torch", []),
+    ("scenario2_adversarial_torch", []),
+    ("scenario3_attention_alignment_torch", []),
+    ("scenario4_interactive_session_torch", ["--explain"]),
+    ("scenario4_interactive_session_torch", ["--backend", "device",
+                                             "--explain"]),
+    ("scenario4_interactive_session_torch", ["--backend", "mesh",
+                                             "--explain"]),
+    ("scenario5_model_iteration_torch", []),
+    ("scenario5_model_iteration_torch", ["--backend", "device"]),
+    ("scenario6_discrepancy_torch", []),
+)
+SCENARIO5_REAL = ["--n-masks", "16384", "--size", "224"]   # 3.29 GB of masks
+
+
+def run_example(script: str, args: list) -> tuple:
+    """``examples/<script>.py`` run in this process as ``__main__`` with
+    ``args`` → (stdout, wall seconds)."""
+    import runpy
+    path = os.path.join(ROOT, "examples", script + ".py")
+    out = io.StringIO()
+    saved = sys.argv
+    sys.argv = [path, *args]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = saved
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def examples_phase(torch, ops, smi) -> dict:
+    """Phase 16: each port example on the card (``--device cuda``, its
+    default) in a launch window of its own, then on the CPU; the two
+    stdouts equal once the clock's readings are masked (``clock_masked``),
+    at least one kernel launched on the card.  Then scenario 5 at a size
+    its users would call real, 16,384 masks of 224x224, on the device and
+    then the host backend on the card: every line but the backend's name
+    equal.  Returns the launch counts summed over the card runs."""
+    t_phase = time.perf_counter()
+    total: dict = {}
+    for script, args in EXAMPLE_RUNS:
+        label = " ".join([script, *args])
+        ops.reset_launches()
+        card, card_s = run_example(script, [*args, "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        cpu, cpu_s = run_example(script, [*args, "--device", "cpu"])
+        if not counts:
+            fail(f"example {label}: no kernel launched on the card")
+        if clock_masked(card) != clock_masked(cpu):
+            diff = [f"card {a!r} / cpu {b!r}" for a, b in zip(
+                clock_masked(card).splitlines(),
+                clock_masked(cpu).splitlines()) if a != b]
+            fail(f"example {label}: the card's stdout differs from the "
+                 f"CPU's: {diff[:3]}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        print(f"example {label}: {len(card.splitlines())} lines equal on "
+              f"the card and the CPU, the clock masked; card {card_s:.2f} s, "
+              f"CPU {cpu_s:.2f} s; launches {json.dumps(counts)} ({smi})")
+    print(f"example launches (all card runs): {json.dumps(total)}")
+
+    runs = {}
+    for be in ("device", "host"):
+        ops.reset_launches()
+        text, wall = run_example("scenario5_model_iteration_torch",
+                                 [*SCENARIO5_REAL, "--backend", be,
+                                  "--device", "cuda"])
+        torch.cuda.synchronize()
+        runs[be] = text.splitlines()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        print(f"example scenario5 at 16,384 x {H}x{W} --backend {be}: "
+              f"{wall:.1f} s wall on the card, launches "
+              f"{json.dumps(counts)} ({smi})")
+    if (runs["device"][0] != "== model iteration on backend device ==" or
+            runs["device"][1:] != runs["host"][1:]):
+        fail("example scenario5 at 16,384 masks: the device and host "
+             "backends print different lines")
+    for line in runs["device"][1:]:
+        if line:
+            print(f"example scenario5 at 16,384: {line}")
+    print(f"example scenario5 at 16,384: device == host, every line "
+          f"({len(runs['device']) - 1}) but the backend's name")
+    print(f"examples phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
+    t_smoke = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4197,6 +4541,18 @@ def main() -> int:
     # granite's sharded train step and decode --------------------------------
     mesh_phase14(torch, dev, ops, smi)
 
+    # -- 15. codeqwen, qwen3, gemma3 and internvl2 at full width serve,
+    # harvest masks, index and query them -------------------------------------
+    windows = dense_phase(torch, dev, smi)
+
+    # -- 16. the paper's quickstart and scenarios 2-6 on the card and the
+    # CPU ---------------------------------------------------------------------
+    windows["examples"] = examples_phase(torch, ops, smi)
+
+    for entry in kernels:
+        entry["windows"] = {w: int(c.get(entry["name"], 0))
+                            for w, c in windows.items()}
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

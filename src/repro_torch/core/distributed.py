@@ -77,12 +77,14 @@ class Mesh:
                 f"devices=[{', '.join(str(d) for d in self.devices)}])")
 
 
-def local_devices(kind: str | None = None) -> list[torch.device]:
-    """Every visible device of one type: ``cuda:0..n-1`` (the default when a
-    card is visible), or the one CPU device."""
-    if kind is None:
-        kind = "cuda" if torch.cuda.is_available() else "cpu"
+def local_devices(kind: str = "cuda") -> list[torch.device]:
+    """Every visible device of one type: ``cuda:0..n-1`` (the default;
+    raises when no card is visible), or the one CPU device."""
     if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is visible; pass the mesh's "
+                               "devices (e.g. [\"cpu\"] * n) to run it on "
+                               "the CPU")
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device(kind)]
@@ -91,8 +93,9 @@ def local_devices(kind: str | None = None) -> list[torch.device]:
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
               devices=None) -> Mesh:
     """A mesh of ``shape`` over ``devices`` (by default
-    :func:`local_devices`).  Repeat a device to shard over it logically,
-    e.g. ``make_mesh((8,), ("data",), ["cpu"] * 8)``."""
+    :func:`local_devices`: every card, raising when none is visible).
+    Repeat a device to shard over it logically, e.g. ``make_mesh((8,),
+    ("data",), ["cpu"] * 8)``."""
     return Mesh(shape, axes, local_devices() if devices is None else devices)
 
 

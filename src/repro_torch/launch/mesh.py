@@ -30,21 +30,26 @@ PRODUCTION = {False: ((16, 16), ("data", "model")),
 
 
 def _device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The cards, the default of every mesh here: raises when none is
+    visible (CPU callers ask for ``device_type="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass "
+                           "device_type=\"cpu\" for a mesh of CPU ranks")
+    return "cuda"
 
 
 def make_production_mesh(multi_pod: bool = False, device_type=None):
     """The 16×16 (or 2×16×16) mesh over the default process group, which
     must have exactly that many ranks."""
     import torch.distributed as dist
+    device_type = device_type or _device_type()
     shape, axes = PRODUCTION[multi_pod]
     need = math.prod(shape)
     have = dist.get_world_size() if dist.is_initialized() else 1
     if have != need:
         raise SystemExit(f"the production mesh {'×'.join(map(str, shape))} "
                          f"needs {need} ranks; found {have}")
-    return init_device_mesh(device_type or _device_type(), shape,
-                            mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_local_mesh(shape=None, axes=None, device_type=None):

@@ -1119,6 +1119,48 @@ def test_other_families_on_the_card_match_cpu(cuda, no_tf32, arch):
     assert got["finite"] and torch.equal(got["tokens"].cpu(), want["tokens"])
 
 
+@pytest.mark.parametrize("arch", ["codeqwen15_7b", "qwen3_32b",
+                                  "gemma3_27b", "internvl2_1b"])
+def test_dense_configs_on_the_card_match_cpu(cuda, no_tf32, arch):
+    """The four dense configs' SMOKE in float32 (generator seed 0,
+    ``wq``/``wk`` at 1/4): logits within 1e-4 of their scale and the last
+    attention layer's maps within 1e-5, card against CPU, TF32 off;
+    internvl2's prompt carries its patches (logits and maps cover them),
+    gemma3's 40 tokens pass its SMOKE window of 16 (its last layer is
+    local, so the maps hold the window's zeros).  Then the greedy tokens
+    of prefill + 5 decode steps are equal (gemma3's decode goes through
+    the reference's ring, ROADMAP §3, on both)."""
+    from repro_torch.configs import load_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(load_smoke(arch), dtype="float32")
+    cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith(("wq", "wk")):
+                p.mul_(0.25)
+    card = build_model(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = serve.prompt_batch(cfg, 2, 40, seed=3)
+    seq = 40 + (cfg.num_patches or 0)
+    with torch.no_grad():
+        want = (cpu.logits(batch)[0], cpu.attention_maps(batch))
+        got = (card.logits(batch)[0], card.attention_maps(batch))
+    assert got[0].device.type == cuda.type
+    assert tuple(got[1].shape) == (2, cfg.num_heads, seq, seq)
+    v = cfg.vocab_size                          # past it, pad columns
+    scale = max(1.0, float(want[0][..., :v].abs().max()))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0,
+                               atol=1e-4 * scale)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-5)
+    if cfg.local_window:
+        assert float(got[1][..., -1, :seq - cfg.local_window].abs()
+                     .max()) == 0
+    want = serve.greedy_generate(cpu, batch, 6)
+    got = serve.greedy_generate(card, batch, 6)
+    assert got["finite"] and torch.equal(got["tokens"].cpu(), want["tokens"])
+
+
 # ---------------------------------------------------------------------------
 # the DeepSeek family on the card
 # ---------------------------------------------------------------------------

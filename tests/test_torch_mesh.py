@@ -36,6 +36,7 @@ from repro_torch.core.backend import MeshBackend, get_backend, host_backend
 from repro_torch.core.engine import TopKRun
 from repro_torch.core.exprs import AggCP, BinOp, Cmp, CP, RoiArea
 from repro_torch.core.plan import LogicalPlan, run_plan
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.obs.metrics import REGISTRY
 
 STATS = ("n_candidates", "n_decided_by_bounds", "n_verified", "n_rounds",
@@ -67,12 +68,22 @@ def _eq(got, want, label=""):
 # ---------------------------------------------------------------------------
 
 
-def test_mesh_shapes_and_placement():
+def test_mesh_shapes_and_placement(monkeypatch):
     mesh = _tmesh(8)
     assert mesh.size == 8 and mesh.shape == {"data": 2, "model": 4}
     assert tdist.db_axes(mesh) == ("data", "model")
     assert all(d == torch.device("cpu") for d in mesh.devices)
-    assert tdist.make_mesh((1,), ("data",)).devices == (torch.device("cpu"),)
+    assert tdist.make_mesh((1,), ("data",), ["cpu"]).devices == (
+        torch.device("cpu"),)
+    # with no card visible a mesh without devices raises: nothing falls
+    # back to the CPU on its own
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdist.make_mesh((1,), ("data",))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_local_mesh((1,), ("data",))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_production_mesh()
     with pytest.raises(ValueError):
         tdist.make_mesh((2, 4), ("data", "model"), ["cpu"] * 4)
     x = np.arange(16 * 3, dtype=np.int32).reshape(16, 3)

@@ -45,7 +45,7 @@ from repro_torch.launch import serve
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as tlayers
-from repro_torch.models.convert import load_reference_params
+from repro_torch.models.convert import load_reference_params, reference_tree
 from repro_torch.models.layers import count_params
 
 DENSE = ("granite_3_2b", "codeqwen15_7b", "qwen3_32b", "gemma3_27b",
@@ -469,6 +469,78 @@ def test_local_window_ring_fault_is_the_reference_s():
             assert min(errs) > 0.5, errs       # off from the first step
         else:
             assert max(errs) < 1e-3, errs
+
+
+def test_vlm_serve_cache_omits_the_patches_like_the_reference_s():
+    """internvl2 SMOKE in float32 (``wq``/``wk`` at 1/4), 8 patches ahead
+    of an 8-token prompt.  Both packages' serve paths size the cache
+    prompt + gen, the patches not counted (the reference CLI's
+    ``max_len``, ``greedy_generate`` here), so the 16-position prefill
+    takes the ring branch of a global layer (its last slots kept) and
+    every decode step writes the last slot.  ``greedy_generate``'s tokens equal the reference's decode on
+    that cache; with fixed tokens the port's decode logits equal the
+    reference's and leave teacher forcing, and a cache that counts the
+    patches stays on it."""
+    jc, jm, params, tc = pair("internvl2_1b", "float32", qk_scale=0.25)
+    model = carried(tc, params)
+    p0 = jc.num_patches
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, jc.vocab_size, (B, 12)).astype(np.int32)
+    patches = rng.standard_normal((B, p0, jc.d_model)).astype(np.float32)
+    prompt = {"tokens": tokens[:, :8], "patches": patches}
+    jprompt = {k: jnp.asarray(v) for k, v in prompt.items()}
+    jfull, _ = jax.jit(jm.logits)(params, {"tokens": jnp.asarray(tokens),
+                                           "patches": jnp.asarray(patches)})
+    prefill, decode = jax.jit(jm.prefill), jax.jit(jm.decode_step)
+
+    jl, jcache = prefill(params, jprompt, jm.init_cache(B, 8 + 5))
+    token = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+    want = [token]
+    for i in range(4):
+        jl, jcache = decode(params, jcache, token, jnp.int32(p0 + 8 + i))
+        token = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+        want.append(token)
+    got = serve.greedy_generate(model, prompt, 5)["tokens"]
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.concatenate(want, axis=1))
+
+    for slots, faulty in ((p0 + 12, False), (12, True)):
+        _, jcache = prefill(params, jprompt, jm.init_cache(B, slots))
+        _, tcache = model.prefill(prompt, model.init_cache(B, slots))
+        errs = []
+        for pos in range(8, 12):
+            tok = tokens[:, pos:pos + 1]
+            jd, jcache = decode(params, jcache, jnp.asarray(tok),
+                                jnp.int32(p0 + pos))
+            td, tcache = model.decode_step(tcache, tok, p0 + pos)
+            assert_close(td[:, 0], jd[:, 0], "float32", f"decode {pos}")
+            errs.append(float(np.abs(to_np(jd[:, 0]) -
+                                     to_np(jfull[:, p0 + pos])).max()))
+        if faulty:
+            assert min(errs) > 0.5, errs       # off from the first step
+        else:
+            assert max(errs) < 1e-3, errs
+
+
+@pytest.mark.parametrize("arch, total", [
+    ("codeqwen15_7b", 7_811_108_864), ("qwen3_32b", 31_984_210_944),
+    ("gemma3_27b", 27_008_335_616), ("internvl2_1b", 493_775_744)])
+def test_dense_full_width_parameters_equal_the_reference_s(arch, total):
+    """At full width and depth (on ``meta``, no storage): the parameter
+    count (``chip_smoke.py``'s ``DENSE_PARAMS``) and every leaf's shape
+    and dtype in the reference's layout equal ``jax.eval_shape`` of the
+    JAX package's init."""
+    model = tbuild(tconfigs.load_arch(arch), "meta")
+    want = jax.eval_shape(lambda k: jbuild(jconfigs.load_arch(arch)).init(
+        k)[0], jax.random.PRNGKey(0))
+    assert count_params(model) == total == sum(
+        int(np.prod(x.shape)) for x in jax.tree.leaves(want))
+    got = reference_tree(model, model.parameters())
+    assert (jax.tree.structure(jax.tree.map(lambda t: 0, got)) ==
+            jax.tree.structure(jax.tree.map(lambda t: 0, want)))
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert tuple(g.shape) == tuple(w.shape)
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype)
 
 
 def test_convert_checks_names_and_shapes():
